@@ -1,0 +1,90 @@
+"""Tests of the port that need a CUDA device: the hand-written kernels
+against their plain PyTorch versions, and a short tracker run on the card
+against the same run on the CPU. They skip without a card. This file
+imports no jax (the GPU machine has none); run it there with
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vslam_torch.models import map_state, tracker
+from vslam_torch.ops import patches
+from vslam_torch.utils import host
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU or interpret mode)")
+    return torch.device("cuda")
+
+
+def _window_case(seed, B, h, w, q, P, Pw, dev):
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0.0, 255.0, size=(B, h, w)).astype(np.float32)
+    x0 = rng.integers(0, w - Pw + 1, size=(B, q)).astype(np.int32)
+    y0 = rng.integers(0, h - P + 1, size=(B, q)).astype(np.int32)
+    x0[:, :2], y0[:, :2] = [0, w - Pw], [0, h - P]
+    return [torch.from_numpy(a).to(dev) for a in (img, x0, y0)]
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        (2, 40, 56, 70, 31, 31),
+        (2, 48, 64, 13, 11, 21),
+        (1, 31, 33, 5, 31, 31),
+        (2, 480, 752, 222, 31, 31),  # bench level 0: quota 222 of 1024
+        (2, 134, 210, 61, 31, 31),  # bench level 7
+    ],
+)
+def test_extract_windows_kernel_equals_plain_version(dev, case):
+    img, x0, y0 = _window_case(0, *case[:4], *case[4:], dev)
+    P, Pw = case[4], case[5]
+    n0 = patches.LAUNCHES
+    out = patches.extract_windows(img, x0, y0, P, Pw)
+    torch.cuda.synchronize()
+    assert patches.LAUNCHES == n0 + 1
+    assert torch.equal(out, patches.extract_windows_ref(img, x0, y0, P, Pw))
+    # out-of-range corners are clamped into the image by both versions
+    x_bad, y_bad = x0.clone(), y0.clone()
+    x_bad[0, 0], y_bad[0, 0] = 100_000, -7
+    assert torch.equal(
+        patches.extract_windows(img, x_bad, y_bad, P, Pw),
+        patches.extract_windows_ref(img, x_bad, y_bad, P, Pw),
+    )
+
+
+def test_extract_windows_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    img, x0, y0 = _window_case(1, 2, 40, 56, 9, 31, 31, dev)
+    with pytest.raises(TypeError):
+        patches.extract_windows(img, x0.long(), y0, 31, 31)
+    with pytest.raises(ValueError, match="contiguous"):
+        patches.extract_windows(img.transpose(1, 2).contiguous().transpose(1, 2), x0, y0, 31, 31)
+    with pytest.raises(ValueError, match="different devices"):
+        patches.extract_windows(img, x0.cpu(), y0.cpu(), 31, 31)
+    assert patches.extract_windows(img, x0[:, :0], y0[:, :0], 31, 31).shape == (2, 0, 31, 31)
+
+
+def test_tracker_on_card_matches_cpu(dev):
+    """Five frames of the small tracker scene on the card and on the CPU
+    (plain versions): the same keyframes, poses within 1e-4 m."""
+    scene = host.make_scene(n_frames=5, n_points=400, width=320, height=240, fps=10.0, seed=7)
+    params = tracker.TrackerParams(n_features=512, n_levels=4, active_size=1024, kf_min_stereo=60)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        world = map_state.WorldMap(lm_capacity=8192, kf_capacity=64, keys_per_kf=512, device=d)
+        trk = tracker.StereoTracker(scene.K, scene.baseline, 320, 240, world, params, device=d)
+        n0 = patches.LAUNCHES
+        for f in range(5):
+            trk.track(scene.render(f), scene.render(f, right=True))
+        runs[d.type] = (trk, trk.trajectory(), patches.LAUNCHES - n0)
+    (tg, pg, launches), (tc, pc, cpu_launches) = runs["cuda"], runs["cpu"]
+    assert launches == 5 * 4 and cpu_launches == 0
+    assert tg.new_kf_slots == tc.new_kf_slots
+    np.testing.assert_allclose(pg, pc, atol=1e-4, rtol=0)

@@ -1,0 +1,143 @@
+"""Multi-level ORB extraction: pyramid -> FAST -> ANMS -> patch windows ->
+orientation -> BRIEF (port of vslam_tpu/ops/extract.py).
+
+The 31x31 patches of every level come from :func:`patches.extract_windows`,
+the hand-written CUDA kernel on a GPU tensor.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from vslam_torch.ops import fast, orb, patches, pyramid
+
+
+class Keys(NamedTuple):
+    """Fixed-size keypoint SoA (the TrackedKeys analog)."""
+
+    xy: torch.Tensor  # (..., N, 2) f32 level-0 pixel coords
+    octave: torch.Tensor  # (..., N) int64
+    response: torch.Tensor  # (..., N) f32
+    valid: torch.Tensor  # (..., N) bool
+    desc: torch.Tensor  # (..., N, 256) int8 +-1
+    packed: torch.Tensor  # (..., N, 8) int64 words of 32 bits
+    angle: torch.Tensor  # (..., N) f32 radians
+
+    def select(self, i: int) -> "Keys":
+        """The keys of image `i` of a batched extraction."""
+        return Keys(*(a[i] for a in self))
+
+
+def level_quotas(total: int, n_levels: int, scale: float) -> list[int]:
+    """Geometric per-level quotas summing to `total` (reference
+    src/FeatureExtractor.cpp:648-659)."""
+    inv = 1.0 / scale
+    first = total * (1.0 - inv) / (1.0 - inv**n_levels)
+    quotas = [int(round(first * inv**l)) for l in range(n_levels - 1)]
+    quotas.append(max(total - sum(quotas), 0))
+    return quotas
+
+
+def extract_batch(
+    imgs: torch.Tensor,
+    n_levels: int = 8,
+    scale: float = 1.2,
+    total: int = 2048,
+    cell: int = 35,
+    edge_margin: int = 19,
+    fast_hi: float = 20.0,
+    fast_lo: float = 7.0,
+) -> Keys:
+    """Batched extraction over (B, H, W) float32 images (e.g. a stereo pair).
+    All Keys fields carry a leading batch dim."""
+    B, H, W = imgs.shape
+    dev = imgs.device
+    shapes = pyramid.level_shapes(H, W, n_levels, scale)
+    quotas = level_quotas(total, n_levels, scale)
+
+    P = orb.PATCH
+    half = P // 2
+
+    cur = imgs
+    xs, resps, valids, patch_parts = [], [], [], []
+    slot_level: list[int] = []
+    for l in range(n_levels):
+        h, w = shapes[l]
+        if l > 0:
+            cur = pyramid.resize_bilinear_batch(cur, h, w)
+        quota = quotas[l]
+        if quota <= 0:
+            continue
+        blurred = pyramid.gaussian_blur_batch(cur)
+        margin = min(edge_margin, min(h, w) // 4)
+        # ANMS cell adapted to the level quota (vslam_tpu/ops/extract.py:84-90)
+        cell_l = max(8, min(cell, int((h * w / max(quota, 1)) ** 0.5)))
+        xy, resp, valid = fast.detect(
+            cur,
+            threshold_hi=fast_hi,
+            threshold_lo=fast_lo,
+            cell=min(cell_l, max(h, w)),
+            max_keypoints=quota,
+            edge_margin=margin,
+        )
+        xs.append(xy)
+        resps.append(resp)
+        valids.append(valid)
+        slot_level += [l] * quota
+
+        # the clip stays BEFORE the kernel call: the kernel takes corners
+        # already inside [0, w-P] x [0, h-P]
+        x0 = torch.clamp(xy[:, :, 0] - half, 0, w - P).to(torch.int32)
+        y0 = torch.clamp(xy[:, :, 1] - half, 0, h - P).to(torch.int32)
+        patch_parts.append(patches.extract_windows(blurred, x0, y0, P, P))
+
+    xy_lvl = torch.cat(xs, dim=1)  # (B, N, 2) level coords
+    resp = torch.cat(resps, dim=1)
+    valid = torch.cat(valids, dim=1)
+    N = xy_lvl.shape[1]
+    lvl, sf = _slot_tables(tuple(slot_level), scale, dev)
+    patch_all = torch.cat(patch_parts, dim=1)  # (B, N, P, P)
+
+    angle = orb.orientation_from_patches(patch_all)
+    packed, signed = orb.brief_from_patches(patch_all, angle)
+
+    return Keys(
+        xy=xy_lvl.to(torch.float32) * sf[None, :, None],
+        octave=lvl[None].expand(B, N),
+        response=resp,
+        valid=valid,
+        desc=signed,
+        packed=packed,
+        angle=angle,
+    )
+
+
+def scale_factors(n_levels: int = 8, scale: float = 1.2) -> np.ndarray:
+    return np.array([scale**l for l in range(n_levels)], np.float32)
+
+
+# Constant tables live on the device once (a host tensor per call would be
+# a host->device copy, which synchronizes the stream).
+@functools.lru_cache(maxsize=None)
+def _slot_tables(slot_level: tuple, scale: float, device: torch.device):
+    """(octave per key slot int64, scale^octave per slot f32) on `device`."""
+    lvl = np.array(slot_level, np.int64)
+    sf = np.array([scale**l for l in slot_level], np.float32)
+    return torch.from_numpy(lvl).to(device), torch.from_numpy(sf).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_factors_dev(n_levels: int, scale: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(scale_factors(n_levels, scale)).to(device)
+
+
+def inv_sigma2(octave: torch.Tensor, n_levels: int = 8, scale: float = 1.2) -> torch.Tensor:
+    """Per-octave information weight 1/sigma^2 with sigma = scale^octave
+    (reference src/FeatureTracker.cpp:239-240)."""
+    sf = _scale_factors_dev(n_levels, scale, octave.device)
+    s = sf[torch.clamp(octave, 0, n_levels - 1)]
+    return 1.0 / (s * s)

@@ -1,0 +1,250 @@
+"""Batched Levenberg-Marquardt on SE(3) and motion-only BA (port of
+vslam_tpu/ops/lm.py, no-IMU path).
+
+GTSAM LevenbergMarquardtOptimizer semantics, as in the reference
+(lm.py:86-95): lambda x/÷10 on reject/accept, clipped to [1e-10, 1e8];
+done on a small relative decrease at low damping, or when lambda blows up.
+``lax.while_loop`` becomes a Python loop over a batch of independent
+problems (the tracker's two starts): a lane that is done is frozen, so
+every lane stops at the iteration where the JAX loop stops. The host reads
+the done flags only every ``_DONE_CHECK_EVERY`` iterations.
+
+The Jacobian is the analytic one of the projection residuals at the zero
+tangent of the right retraction T * exp(xi) — what ``jax.jacfwd`` computes
+at lm.py:73, without the forward-mode pass.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from vslam_torch.geometry import se3
+
+CHI2_3DOF = 7.815  # reference include/FeatureTracker.h:56
+
+# Iterations between host reads of the done flags. It only spaces out the
+# host syncs: a lane that is done is frozen, so it never changes the
+# iteration at which a lane stops.
+_DONE_CHECK_EVERY = 4
+
+
+class LMResult(NamedTuple):
+    state: torch.Tensor  # (B, 4, 4)
+    error: torch.Tensor  # (B,) final 0.5 * ||r||^2
+    iterations: torch.Tensor  # (B,) int64
+    lam: torch.Tensor  # (B,)
+
+
+def _half_sq(r: torch.Tensor) -> torch.Tensor:
+    return 0.5 * torch.sum(r * r, dim=tuple(range(1, r.ndim)))
+
+
+def lm_solve(
+    linearize: Callable,
+    residual: Callable,
+    state0: torch.Tensor,
+    max_iters: int = 100,
+    lambda0: float = 1e-5,
+    lambda_factor: float = 10.0,
+    rel_tol: float = 1e-5,
+    min_diag: float = 1e-6,
+) -> LMResult:
+    """Minimize 0.5 * ||r(T)||^2 for a batch of poses T (B, 4, 4) with the
+    right retraction T * exp(delta).
+
+    residual(T) -> r (B, R); linearize(T) -> (r (B, R), J (B, R, 6)) with
+    J = dr/d(delta) at delta = 0. Invalid rows must already be zero."""
+    B = state0.shape[0]
+    dev = state0.device
+    state = state0
+    err = _half_sq(residual(state0))
+    lam = torch.full((B,), lambda0, dtype=torch.float32, device=dev)
+    its = torch.zeros((B,), dtype=torch.int64, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for k in range(max_iters):
+        if k and k % _DONE_CHECK_EVERY == 0 and bool(done.all()):
+            break
+        active = ~done
+        r, J = linearize(state)
+        Jt = J.transpose(-1, -2)
+        H = Jt @ J
+        g = (Jt @ r[..., None])[..., 0]
+        diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=min_diag)
+        A = H + lam[:, None, None] * torch.diag_embed(diag)
+        delta = torch.linalg.solve_ex(A, -g)[0]  # no host sync on error check
+        new_state = se3.retract(state, delta)
+        new_err = _half_sq(residual(new_state))
+        improved = new_err < err
+        upd = active & improved
+        state = torch.where(upd[:, None, None], new_state, state)
+        lam_new = torch.where(improved, lam / lambda_factor, lam * lambda_factor)
+        lam_new = torch.clamp(lam_new, 1e-10, 1e8)
+        rel = torch.abs(err - new_err) / torch.clamp(err, min=1e-12)
+        # converged on relative decrease only at low damping; or stalled
+        # (see vslam_tpu/ops/lm.py:89-95)
+        done_new = (improved & (rel < rel_tol) & (lam_new < 1e-1)) | (lam_new > 1e6)
+        err = torch.where(upd, new_err, err)
+        lam = torch.where(active, lam_new, lam)
+        its = its + active.long()
+        done = done | (active & done_new)
+    return LMResult(state=state, error=err, iterations=its, lam=lam)
+
+
+# ---------------------------------------------------------------------------
+# Motion-only bundle adjustment (pose from frozen landmarks)
+# ---------------------------------------------------------------------------
+
+
+def _project(T_wc, pts_w, K, baseline):
+    """Left-camera coordinates of pts_w (M, 3) under each pose (B, 4, 4)."""
+    T_cw = se3.inverse(T_wc)
+    return se3.transform_points(T_cw, pts_w[None])  # (B, M, 3)
+
+
+def _residuals(pc, obs, weights, is_stereo, is_right, valid, K, baseline, with_jac):
+    fx, fy = K[0, 0], K[1, 1]
+    cx, cy = K[0, 2], K[1, 2]
+    x, y = pc[..., 0], pc[..., 1]
+    z = torch.clamp(pc[..., 2], min=0.05)
+    u_l = fx * x / z + cx
+    v_l = fy * y / z + cy
+    u_r = fx * (x - baseline) / z + cx
+
+    u_pred = torch.where(is_right, u_r, u_l)
+    r_u = u_pred - obs[:, 0]
+    r_v = v_l - obs[:, 1]
+    r_ur = torch.where(is_stereo, u_r - obs[:, 2], 0.0)
+    # behind-camera rows COST (clamped z -> huge residual, clipped to 512 px)
+    # instead of vanishing; see vslam_tpu/ops/lm.py:141-149
+    w = torch.where(valid, weights, 0.0)
+    raw = torch.stack([r_u, r_v, r_ur], dim=-1)
+    res = torch.clamp(raw, -512.0, 512.0) * w[..., None]
+    if not with_jac:
+        return res, None
+
+    # d pc / d xi at xi = 0 for T * exp(xi): [hat(pc) | -I]
+    dpc = torch.cat(
+        [se3.hat(pc), -torch.eye(3, dtype=pc.dtype, device=pc.device).expand(pc.shape[:-1] + (3, 3))],
+        dim=-1,
+    )  # (B, M, 3, 6)
+    dx, dy = dpc[..., 0, :], dpc[..., 1, :]
+    dz = dpc[..., 2, :] * (pc[..., 2] > 0.05)[..., None]
+    zz = (z * z)[..., None]
+    zc = z[..., None]
+    du_l = fx * dx / zc - (fx * x)[..., None] * dz / zz
+    dv_l = fy * dy / zc - (fy * y)[..., None] * dz / zz
+    du_r = fx * dx / zc - (fx * (x - baseline))[..., None] * dz / zz
+    J = torch.stack(
+        [
+            torch.where(is_right[..., None], du_r, du_l),
+            dv_l,
+            torch.where(is_stereo[..., None], du_r, 0.0),
+        ],
+        dim=-2,
+    )  # (B, M, 3, 6)
+    inside = ((raw > -512.0) & (raw < 512.0)).to(J.dtype)
+    J = J * (inside * w[..., None])[..., None]
+    return res, J
+
+
+def stereo_residuals(
+    T_wc: torch.Tensor,  # (B, 4, 4) camera-to-world (left)
+    pts_w: torch.Tensor,  # (M, 3) frozen landmark positions
+    obs: torch.Tensor,  # (M, 3) [u_left, v_left, u_right]
+    weights: torch.Tensor,  # (M,) sqrt information
+    is_stereo: torch.Tensor,  # (M,) or (B, M) bool: has a valid right-x
+    is_right: torch.Tensor,  # (M,) bool: observation in the RIGHT camera only
+    valid: torch.Tensor,  # (M,) or (B, M) bool
+    K: torch.Tensor,
+    baseline,
+) -> torch.Tensor:
+    """(B, M, 3) weighted residuals: the reference factor mix
+    (src/FeatureTracker.cpp:216-298) — close points [u_l, v, u_r], far left
+    points [u_l, v, 0], right-camera points [u_r, v, 0]."""
+    pc = _project(T_wc, pts_w, K, baseline)
+    return _residuals(pc, obs, weights, is_stereo, is_right, valid, K, baseline, False)[0]
+
+
+def reproj_chi2(
+    T_wc, pts_w, obs, inv_sigma2, is_stereo, is_right, valid, K, baseline
+) -> torch.Tensor:
+    """(B, M) per-observation chi^2 (reference check2dError / findOutliersR,
+    src/FeatureTracker.cpp:147-164, 582-649); behind-camera rows never
+    classify as inliers."""
+    ones = torch.ones_like(inv_sigma2)
+    pc = _project(T_wc, pts_w, K, baseline)
+    res = _residuals(pc, obs, ones, is_stereo, is_right, valid, K, baseline, False)[0]
+    e2 = torch.sum(res * res, dim=-1)
+    e2 = torch.where(pc[..., 2] <= 0.05, 1e12, e2)
+    return e2 * inv_sigma2
+
+
+def motion_only_ba(
+    T_init: torch.Tensor,  # (B, 4, 4) one problem per initial pose
+    pts_w: torch.Tensor,
+    obs: torch.Tensor,
+    inv_sigma2: torch.Tensor,
+    is_stereo: torch.Tensor,
+    is_right: torch.Tensor,
+    valid: torch.Tensor,
+    K: torch.Tensor,
+    baseline,
+    max_iters: int = 100,
+):
+    """Pose-only LM with frozen landmarks (reference estimatePoseGTSAM,
+    no-IMU branch), solved from each of the B initial poses at once.
+
+    Two passes (vslam_tpu/ops/lm.py:motion_only_ba): a Huber-reweighted
+    solve, a chi-squared sweep with stereo->mono demotion, then a plain
+    least-squares re-solve on the gated set.
+
+    Returns (T_opt (B,4,4), chi2 (B,M), inliers (B,M), is_stereo_out (B,M),
+    LMResult of the second pass)."""
+    B = T_init.shape[0]
+    weights = torch.sqrt(inv_sigma2)
+    chi2_gate = torch.tensor(CHI2_3DOF, dtype=torch.float32)
+    huber_delta = float(torch.sqrt(chi2_gate))  # f32 sqrt, as jnp.sqrt
+    valid_b = valid.expand(B, -1)
+    st_b = is_stereo.expand(B, -1)
+
+    def classify(T, st):
+        chi2_3 = reproj_chi2(T, pts_w, obs, inv_sigma2, st, is_right, valid, K, baseline)
+        chi2_2 = reproj_chi2(
+            T, pts_w, obs, inv_sigma2, torch.zeros_like(st), is_right, valid, K, baseline
+        )
+        demote = st & (chi2_3 >= CHI2_3DOF) & (chi2_2 < CHI2_3DOF)
+        keep = valid & ((chi2_3 < CHI2_3DOF) | demote)
+        return keep, st & ~demote
+
+    def solve(T0, mask, st, robust):
+        def lin(T, with_jac):
+            pc = _project(T, pts_w, K, baseline)
+            r, J = _residuals(pc, obs, weights, st, is_right, mask, K, baseline, with_jac)
+            if robust:
+                # IRLS Huber weight, frozen at the linearization point (the
+                # reference's stop_gradient); eps keeps padded zero rows finite
+                n = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-18)
+                w_h = torch.sqrt(torch.clamp(huber_delta / n, max=1.0))
+                r = r * w_h[..., None]
+                if with_jac:
+                    J = J * w_h[..., None, None]
+            r = r.reshape(B, -1)
+            return (r, J.reshape(B, -1, 6)) if with_jac else r
+
+        return lm_solve(
+            lambda T: lin(T, True), lambda T: lin(T, False), T0, max_iters=max_iters
+        )
+
+    res1 = solve(T_init, valid_b, st_b, robust=True)
+    keep, st1 = classify(res1.state, st_b)
+    # guard: if the sweep kills nearly everything, keep the original set
+    enough = torch.sum(keep, dim=-1) >= torch.clamp(torch.sum(valid_b, dim=-1) // 4, min=6)
+    keep = torch.where(enough[:, None], keep, valid_b)
+    st1 = torch.where(enough[:, None], st1, st_b)
+    result = solve(res1.state, keep, st1, robust=False)
+    T_opt = result.state
+    inliers, st_out = classify(T_opt, st1)
+    chi2 = reproj_chi2(T_opt, pts_w, obs, inv_sigma2, st_out, is_right, valid, K, baseline)
+    return T_opt, chi2, inliers, st_out, result

@@ -1,0 +1,71 @@
+"""Stage timer and counters (port of vslam_tpu/utils/metrics.py).
+
+The tracker records per-stage wall time and named counts here. The JAX
+module's ``trace()`` (a ``jax.profiler`` wrapper) has no counterpart yet.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+
+
+class StageTimer:
+    """Accumulate wall times per named stage; cheap enough for per-frame use."""
+
+    def __init__(self, window: int = 200):
+        self._samples: dict[str, collections.deque] = collections.defaultdict(
+            lambda: collections.deque(maxlen=window)
+        )
+        self._totals: dict[str, float] = collections.defaultdict(float)
+        self._counts: dict[str, int] = collections.defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, time.perf_counter() - t0)
+
+    def record(self, name: str, dt: float):
+        self._samples[name].append(dt)
+        self._totals[name] += dt
+        self._counts[name] += 1
+
+    def summary(self) -> dict:
+        out = {}
+        for name, buf in self._samples.items():
+            xs = sorted(buf)
+            n = len(xs)
+            if not n:
+                continue
+            out[name] = {
+                "count": self._counts[name],
+                "total_s": round(self._totals[name], 4),
+                "mean_ms": round(1e3 * sum(xs) / n, 3),
+                "p50_ms": round(1e3 * xs[n // 2], 3),
+                "p90_ms": round(1e3 * xs[min(n - 1, int(0.9 * n))], 3),
+            }
+        return out
+
+
+class Counters:
+    def __init__(self):
+        self._c: dict[str, int] = collections.defaultdict(int)
+        self._t0 = time.perf_counter()
+
+    def inc(self, name: str, by: int = 1):
+        self._c[name] += by
+
+    def get(self, name: str) -> int:
+        return self._c[name]
+
+    def rates(self) -> dict:
+        dt = max(time.perf_counter() - self._t0, 1e-9)
+        return {f"{k}_per_s": round(v / dt, 3) for k, v in self._c.items()}
+
+    def summary(self) -> dict:
+        return dict(self._c) | self.rates()
+
