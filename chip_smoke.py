@@ -10,14 +10,19 @@ own line:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel under vslam_torch/kernels/csrc, compiled with nvcc;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the main path gives it (torch.equal required), timed with
-   CUDA events (median of 50 after warm-up);
+3. kernels: each kernel against its plain PyTorch version on the card
+   (torch.equal required): extract_windows at every bench level shape, at
+   an odd shape and with out-of-range corners, and extract_windows_levels
+   on frame 0's full 8-level table, as the main path calls it. Then the
+   frame's one launch is timed: device time on a primed stream and host
+   time per call (vslam_torch/kernels/timing.py), against the plain
+   version, one advanced-indexing call per level (the library yardstick)
+   and the bound from the bytes the frame must move;
 4. main path: StereoTracker (no mapper) over 40 frames of the synthetic
    EuRoC-geometry scene at the bench configuration (752x480, seed 3,
    1024 features, 8 levels, 4096 active landmarks) on the card; kernel
-   launch counts, fps, keyframes, landmarks, ATE against exact ground
-   truth (must be <= 0.05 m);
+   launch counts (one per frame), fps, keyframes, landmarks, ATE against
+   exact ground truth (must be <= 0.05 m);
 5. card vs CPU: the first 8 frames again on the card and on the CPU (the
    plain versions); keyframe slots must be equal, per-frame poses within
    1e-3 m / 1e-3 rad.
@@ -29,7 +34,6 @@ line {"ok": true, "device": {...}}. Nothing is caught: any failure raises.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -38,9 +42,10 @@ import numpy as np
 import torch
 
 from vslam_torch import kernels
+from vslam_torch.kernels import timing
 from vslam_torch.models import map_state, tracker
 from vslam_torch.ops import extract, patches, pyramid
-from vslam_torch.utils import host
+from vslam_torch.utils import synthetic, trajectory
 
 # the bench configuration (bench.py:341-345) and its scene
 WIDTH, HEIGHT, SEED, N_FRAMES = 752, 480, 3, 40
@@ -54,23 +59,6 @@ POSE_TOL_M, POSE_TOL_RAD = 1e-3, 1e-3
 
 def say(phase: str, **fields):
     print(f"[{phase}] " + json.dumps(fields), flush=True)
-
-
-def cuda_median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    """Median device time of fn() over `reps` runs, CUDA events per run."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def phase_device() -> str:
@@ -113,7 +101,15 @@ def _level_inputs(scene, dev):
     return cases
 
 
-def phase_kernels(scene, dev) -> dict:
+def _out_of_range(x0, y0):
+    """Corners with entries far outside the image on both sides."""
+    xb, yb = x0.clone(), y0.clone()
+    xb[0, 0], yb[0, 0] = 100_000, -7
+    xb[-1, -1], yb[-1, -1] = -50, 1_000_000
+    return xb, yb
+
+
+def phase_kernels(scene, dev, smi) -> dict:
     cases = _level_inputs(scene, dev)
     # one odd shape: q not a multiple of anything, a non-square window
     rng = np.random.default_rng(SEED + 1)
@@ -123,31 +119,62 @@ def phase_kernels(scene, dev) -> dict:
     x0[:, 0], y0[:, 0] = WIDTH - 21, HEIGHT - 11
     odd = ("odd 480x752 q=37 11x21", img, x0, y0, 11, 21)
 
-    max_err, frame_ms, frame_plain_ms = 0.0, 0.0, 0.0
-    for name, img, x0, y0, P, Pw in cases + [odd]:
-        out = patches.extract_windows(img, x0, y0, P, Pw)
-        ref = patches.extract_windows_ref(img, x0, y0, P, Pw)
+    max_err = 0.0
+
+    def agree(name, out, ref):
+        nonlocal max_err
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             raise AssertionError(f"extract_windows != plain version at {name}")
         max_err = max(max_err, float((out - ref).abs().max()))
-        ms = cuda_median_ms(lambda: patches.extract_windows(img, x0, y0, P, Pw))
-        plain_ms = cuda_median_ms(lambda: patches.extract_windows_ref(img, x0, y0, P, Pw))
-        if name != odd[0]:
-            frame_ms += ms
-            frame_plain_ms += plain_ms
-        say("kernel", name="extract_windows", shape=name, equal=True, ms=ms, plain_ms=plain_ms)
 
-    def whole_frame(fn):
-        for _, img, x0, y0, P, Pw in cases:
-            fn(img, x0, y0, P, Pw)
+    for name, img, x0, y0, P, Pw in cases + [odd]:
+        agree(name, patches.extract_windows(img, x0, y0, P, Pw),
+              patches.extract_windows_ref(img, x0, y0, P, Pw))
+        xb, yb = _out_of_range(x0, y0)
+        agree(name + " clamped", patches.extract_windows(img, xb, yb, P, Pw),
+              patches.extract_windows_ref(img, xb, yb, P, Pw))
+        say("kernel", name="extract_windows", shape=name, equal=True, clamped_equal=True)
 
-    per_frame = cuda_median_ms(lambda: whole_frame(patches.extract_windows))
-    per_frame_plain = cuda_median_ms(lambda: whole_frame(patches.extract_windows_ref))
-    say("kernel", name="extract_windows", shape="whole frame (8 levels, L+R)",
-        ms=per_frame, plain_ms=per_frame_plain, sum_of_level_medians_ms=frame_ms,
-        sum_of_level_medians_plain_ms=frame_plain_ms)
-    return {"max_abs_err": max_err, "ms": per_frame, "plain_ms": per_frame_plain}
+    # frame 0's full table, as extract_batch calls it: one launch
+    P = PATCH
+    levels = [c[1] for c in cases]
+    counts = [c[2].shape[1] for c in cases]
+    x0 = torch.cat([c[2] for c in cases], 1)
+    y0 = torch.cat([c[3] for c in cases], 1)
+    xb, yb = _out_of_range(x0, y0)
+    for tag, (xc, yc) in (("", (x0, y0)), (" clamped", (xb, yb))):
+        agree("8-level table" + tag, patches.extract_windows_levels(levels, counts, xc, yc, P, P),
+              patches.extract_windows_levels_ref(levels, counts, xc, yc, P, P))
+
+    n0 = patches.LAUNCHES
+    patches.extract_windows_levels(levels, counts, x0, y0, P, P)
+    launches_per_frame = patches.LAUNCHES - n0
+    idx = timing.gather_index(levels, counts, x0, y0, P)
+    frame_bytes, covered = timing.window_bytes(idx, x0, P)
+    bound_ms = frame_bytes / timing.HBM_BYTES_PER_S * 1e3
+
+    def stage():
+        patches.extract_windows_levels(levels, counts, x0, y0, P, P)
+
+    def plain():
+        patches.extract_windows_levels_ref(levels, counts, x0, y0, P, P)
+
+    def library():
+        for img, ix in idx:
+            img[ix]
+
+    t = {
+        "launches_per_frame": launches_per_frame,
+        "device_ms": timing.primed_device_ms(stage),
+        "host_ms_per_call": timing.host_ms_per_call(stage),
+        "plain_ms": timing.primed_device_ms(plain, reps=4),
+        "library_ms": timing.primed_device_ms(library, reps=8),
+        "bound_ms": bound_ms,
+    }
+    say("kernel", name="extract_windows", shape="frame 0, 8 levels, L+R, one launch",
+        card=smi, frame_bytes=frame_bytes, covered_pixels=covered, **t)
+    return {"max_abs_err": max_err, **t}
 
 
 def _run_tracker(scene, frames, device):
@@ -171,34 +198,37 @@ def phase_main_path(scene) -> tuple[int, list]:
     frames = [torch.from_numpy(p).to(dev) for p in pairs]
     torch.cuda.synchronize()
 
-    # count every call of the plain version during the run: on the card the
-    # main path must never reach it
-    plain_ref = patches.extract_windows_ref
+    # count every call of the plain versions during the run: on the card the
+    # main path must never reach them
+    plain = {n: getattr(patches, n) for n in ("extract_windows_ref", "extract_windows_levels_ref")}
     plain_devices = []
 
-    def counted_ref(img, *args):
-        plain_devices.append(img.device.type)
-        return plain_ref(img, *args)
+    def counted(fn):
+        def run(*args):
+            plain_devices.append(args[2].device.type)  # the corners
+            return fn(*args)
+        return run
 
     torch.cuda.reset_peak_memory_stats()
-    patches.extract_windows_ref = counted_ref
+    for n, fn in plain.items():
+        setattr(patches, n, counted(fn))
     patches.LAUNCHES = 0
     t0 = time.perf_counter()
     trk, poses = _run_tracker(scene, frames, dev)
     torch.cuda.synchronize()
     track_s = time.perf_counter() - t0
     launches, plain_calls = patches.LAUNCHES, len(plain_devices)
-    patches.extract_windows_ref = plain_ref
+    for n, fn in plain.items():
+        setattr(patches, n, fn)
 
-    quotas = extract.level_quotas(PARAMS["n_features"], PARAMS["n_levels"], 1.2)
-    want = N_FRAMES * sum(q > 0 for q in quotas)
+    want = N_FRAMES  # one launch per stereo frame, every level
     if launches != want:
         raise AssertionError(f"extract_windows launched {launches} times, want {want}")
     if plain_calls:
         raise AssertionError(f"the plain window gather ran {plain_calls} times ({plain_devices})")
     if poses.shape != (N_FRAMES, 4, 4) or not np.isfinite(poses).all():
         raise AssertionError(f"bad trajectory {poses.shape}")
-    ate = host.ate_rmse(poses, scene.poses_c2w[:N_FRAMES], align=False)
+    ate = trajectory.ate_rmse(poses, scene.poses_c2w[:N_FRAMES], align=False)
     stages = trk.metrics.summary()
     say("main_path", frames=N_FRAMES, fps=N_FRAMES / track_s, track_s=track_s,
         render_s=render_s, keyframes=len(trk.new_kf_slots), landmarks=trk.world.n_landmarks,
@@ -235,9 +265,9 @@ def phase_card_vs_cpu(scene, pairs):
 def main() -> int:
     smi = phase_device()
     phase_build()
-    scene = host.make_scene(n_frames=N_FRAMES, n_points=900, width=WIDTH, height=HEIGHT,
-                            fps=20.0, seed=SEED)
-    timing = phase_kernels(scene, torch.device("cuda"))
+    scene = synthetic.make_scene(n_frames=N_FRAMES, n_points=900, width=WIDTH, height=HEIGHT,
+                                 fps=20.0, seed=SEED)
+    t = phase_kernels(scene, torch.device("cuda"), smi)
     launches, pairs = phase_main_path(scene)
     phase_card_vs_cpu(scene, pairs)
     report = {"kernels": [{
@@ -246,9 +276,15 @@ def main() -> int:
         "source": "vslam_torch/kernels/csrc/extract_windows.cu",
         "replaces": "vslam_tpu/ops/patches.py:141",
         "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
+        "launches_per_frame": t["launches_per_frame"],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["device_ms"],
+        "device_ms": t["device_ms"],
+        "host_ms_per_call": t["host_ms_per_call"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": t["library_ms"],
     }]}
     print(smi)
     print(json.dumps(report))

@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from vslam_torch.models import map_state, tracker
-from vslam_torch.ops import patches
-from vslam_torch.utils import host
+from vslam_torch.ops import extract, patches, pyramid
+from vslam_torch.utils import synthetic
 
 pytestmark = pytest.mark.cuda
 
@@ -71,10 +71,63 @@ def test_extract_windows_wrapper_rejects_what_the_kernel_does_not_take(dev):
     assert patches.extract_windows(img, x0[:, :0], y0[:, :0], 31, 31).shape == (2, 0, 31, 31)
 
 
+def _bench_table(dev, seed=2):
+    """A full 8-level table at the bench shapes (752x480, scale 1.2, 1024
+    keys per view, L+R), with out-of-range corners in the first and last
+    level and a ninth level without slots that is smaller than a window."""
+    rng = np.random.default_rng(seed)
+    levels, counts, x0s, y0s = [], [], [], []
+    shapes = pyramid.level_shapes(480, 752, 8, 1.2) + [(20, 25)]
+    quotas = extract.level_quotas(1024, 8, 1.2) + [0]
+    for (h, w), q in zip(shapes, quotas):
+        levels.append(torch.from_numpy(rng.uniform(0.0, 255.0, size=(2, h, w)).astype(np.float32)).to(dev))
+        counts.append(q)
+        x0s.append(rng.integers(0, max(w - 31, 0) + 1, size=(2, q)).astype(np.int32))
+        y0s.append(rng.integers(0, max(h - 31, 0) + 1, size=(2, q)).astype(np.int32))
+    x0, y0 = np.concatenate(x0s, 1), np.concatenate(y0s, 1)
+    x0[0, 0], y0[0, 0] = 100_000, -7
+    x0[1, -1], y0[1, -1] = -3, 1_000
+    return levels, counts, torch.from_numpy(x0).to(dev), torch.from_numpy(y0).to(dev)
+
+
+def test_extract_windows_levels_kernel_equals_plain_version_on_bench_table(dev):
+    levels, counts, x0, y0 = _bench_table(dev)
+    n0 = patches.LAUNCHES
+    out = patches.extract_windows_levels(levels, counts, x0, y0, 31, 31)
+    torch.cuda.synchronize()
+    assert patches.LAUNCHES == n0 + 1
+    assert out.shape == (2, 1024, 31, 31)
+    assert torch.equal(out, patches.extract_windows_levels_ref(levels, counts, x0, y0, 31, 31))
+    with pytest.raises(ValueError, match="levels own slots"):
+        many = [levels[-2]] * (patches.MAX_LEVELS + 1)
+        patches.extract_windows_levels(many, [1] * len(many), x0[:, : len(many)].contiguous(),
+                                       y0[:, : len(many)].contiguous(), 31, 31)
+
+
+def test_extract_batch_launches_the_kernel_once(dev):
+    """One launch per extract_batch, and the same keys as the same call
+    with the plain version in the kernel's place."""
+    scene = synthetic.make_scene(n_frames=2, n_points=400, width=320, height=240, fps=10.0, seed=7)
+    imgs = torch.from_numpy(np.stack([scene.render(1), scene.render(1, right=True)])).to(dev)
+    kw = dict(n_levels=4, scale=1.2, total=512)
+    n0 = patches.LAUNCHES
+    keys = extract.extract_batch(imgs, **kw)
+    torch.cuda.synchronize()
+    assert patches.LAUNCHES == n0 + 1
+    kernel = patches.extract_windows_levels
+    try:
+        patches.extract_windows_levels = patches.extract_windows_levels_ref
+        ref = extract.extract_batch(imgs, **kw)
+    finally:
+        patches.extract_windows_levels = kernel
+    for a, b in zip(keys, ref):
+        assert torch.equal(a, b)
+
+
 def test_tracker_on_card_matches_cpu(dev):
     """Five frames of the small tracker scene on the card and on the CPU
     (plain versions): the same keyframes, poses within 1e-4 m."""
-    scene = host.make_scene(n_frames=5, n_points=400, width=320, height=240, fps=10.0, seed=7)
+    scene = synthetic.make_scene(n_frames=5, n_points=400, width=320, height=240, fps=10.0, seed=7)
     params = tracker.TrackerParams(n_features=512, n_levels=4, active_size=1024, kf_min_stereo=60)
     runs = {}
     for d in (dev, torch.device("cpu")):
@@ -85,6 +138,6 @@ def test_tracker_on_card_matches_cpu(dev):
             trk.track(scene.render(f), scene.render(f, right=True))
         runs[d.type] = (trk, trk.trajectory(), patches.LAUNCHES - n0)
     (tg, pg, launches), (tc, pc, cpu_launches) = runs["cuda"], runs["cpu"]
-    assert launches == 5 * 4 and cpu_launches == 0
+    assert launches == 5 and cpu_launches == 0  # one launch per stereo frame
     assert tg.new_kf_slots == tc.new_kf_slots
     np.testing.assert_allclose(pg, pc, atol=1e-4, rtol=0)

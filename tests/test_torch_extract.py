@@ -12,7 +12,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from vslam_torch.ops import extract as text, fast as tfast, orb as torb, patches as tpatch
+from vslam_torch.ops import extract as text, fast as tfast, orb as torb, patches as tpatch, pyramid as tpyr
 from vslam_tpu.ops import extract as jext, fast as jfast, orb as jorb, patches as jpatch
 from vslam_tpu.utils import synthetic
 
@@ -106,6 +106,122 @@ def test_window_wrapper_routes_cpu_to_plain_version_only(monkeypatch):
     meta = torch.empty((2, 40, 56), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tpatch.extract_windows(meta, x_bad.to("meta"), x_bad.to("meta"), 31, 31)
+
+
+# (h, w, q) per level: unequal shapes, a level with no slots (smaller than a
+# window, as a coarse pyramid level can be), q not a multiple of anything
+LEVEL_TABLE = [(48, 64, 20), (20, 25, 0), (40, 53, 13), (36, 44, 9), (31, 35, 7)]
+
+
+def _level_table_case(seed, B=2, P=31, Pw=31):
+    rng = np.random.default_rng(seed)
+    levels, x0s, y0s = [], [], []
+    for h, w, q in LEVEL_TABLE:
+        levels.append(rng.uniform(0.0, 255.0, size=(B, h, w)).astype(np.float32))
+        x0s.append(rng.integers(0, w - Pw + 1, size=(B, q)).astype(np.int32) if q else np.zeros((B, 0), np.int32))
+        y0s.append(rng.integers(0, h - P + 1, size=(B, q)).astype(np.int32) if q else np.zeros((B, 0), np.int32))
+    x0, y0 = np.concatenate(x0s, 1), np.concatenate(y0s, 1)
+    # out-of-range corners on both sides, in the first and the last level
+    x0[0, 0], y0[0, 0] = 10_000, -5
+    x0[1, -1], y0[1, -1] = -40, 999
+    return levels, [q for _, _, q in LEVEL_TABLE], x0, y0
+
+
+def test_levels_plain_version_equals_tpu_kernel_body_per_level():
+    """The one-launch contract on the CPU: the plain version of
+    extract_windows_levels equals the TPU kernel body (Pallas interpret
+    mode) run level by level and concatenated in slot order, with the
+    corners clipped into each level as the JAX extractor clips them."""
+    P = Pw = 31
+    levels, counts, x0, y0 = _level_table_case(4)
+    want, first = [], 0
+    for img, q in zip(levels, counts):
+        if q:
+            h, w = img.shape[1:]
+            xl = np.clip(x0[:, first : first + q], 0, w - Pw)
+            yl = np.clip(y0[:, first : first + q], 0, h - P)
+            want.append(_pallas_interpret(img, xl, yl, P, Pw))
+        first += q
+    got = tpatch.extract_windows_levels_ref(
+        [torch.from_numpy(a) for a in levels], counts, torch.from_numpy(x0), torch.from_numpy(y0), P, Pw
+    )
+    assert got.shape == (2, sum(counts), P, Pw)
+    np.testing.assert_array_equal(got.numpy(), np.concatenate(want, axis=1))
+
+
+def test_levels_wrapper_routes_cpu_to_plain_version_and_checks_its_table(monkeypatch):
+    levels, counts, x0, y0 = _level_table_case(5)
+    lv = [torch.from_numpy(a) for a in levels]
+    tx, ty = torch.from_numpy(x0), torch.from_numpy(y0)
+    calls = []
+    plain = tpatch.extract_windows_levels_ref
+    monkeypatch.setattr(tpatch, "extract_windows_levels_ref", lambda *a: calls.append(1) or plain(*a))
+    launches = tpatch.LAUNCHES
+    out = tpatch.extract_windows_levels(lv, counts, tx, ty, 31, 31)
+    assert tpatch.LAUNCHES == launches and calls == [1]
+    np.testing.assert_array_equal(out.numpy(), plain(lv, counts, tx, ty, 31, 31).numpy())
+    # the single-level entry is the same function on a one-level table
+    np.testing.assert_array_equal(
+        tpatch.extract_windows(lv[0], tx[:, :20], ty[:, :20], 31, 31).numpy(), out[:, :20].numpy()
+    )
+    with pytest.raises(ValueError, match="cover"):
+        tpatch.extract_windows_levels(lv, [20, 0, 13, 9, 6], tx, ty, 31, 31)
+    with pytest.raises(ValueError, match="larger"):  # a level with slots must hold a window
+        tpatch.extract_windows_levels(lv, [20, 1, 13, 9, 6], tx, ty, 31, 31)
+    with pytest.raises(ValueError, match="different devices"):
+        tpatch.extract_windows_levels(lv, counts, tx.to("meta"), ty.to("meta"), 31, 31)
+    meta = [a.to("meta") for a in lv]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tpatch.extract_windows_levels(meta, counts, tx.to("meta"), ty.to("meta"), 31, 31)
+    empty = tpatch.extract_windows_levels(lv[:2], [0, 0], tx[:, :0], ty[:, :0], 31, 31)
+    assert empty.shape == (2, 0, 31, 31)
+
+
+def _extract_batch_per_level(imgs, n_levels, scale, total, edge_margin, fast_hi, fast_lo, cell=35):
+    """The extractor's window stage as it was before the one-launch kernel:
+    per level, corners clipped into the level and one extract_windows call,
+    then the parts concatenated. Returns (angle, packed, desc)."""
+    B, H, W = imgs.shape
+    shapes = tpyr.level_shapes(H, W, n_levels, scale)
+    P, half = torb.PATCH, torb.PATCH // 2
+    cur, parts = imgs, []
+    for l, quota in enumerate(text.level_quotas(total, n_levels, scale)):
+        h, w = shapes[l]
+        if l > 0:
+            cur = tpyr.resize_bilinear_batch(cur, h, w)
+        if quota <= 0:
+            continue
+        blurred = tpyr.gaussian_blur_batch(cur)
+        cell_l = max(8, min(cell, int((h * w / max(quota, 1)) ** 0.5)))
+        xy, _, _ = tfast.detect(
+            cur, threshold_hi=fast_hi, threshold_lo=fast_lo, cell=min(cell_l, max(h, w)),
+            max_keypoints=quota, edge_margin=min(edge_margin, min(h, w) // 4),
+        )
+        x0 = torch.clamp(xy[:, :, 0] - half, 0, w - P).to(torch.int32)
+        y0 = torch.clamp(xy[:, :, 1] - half, 0, h - P).to(torch.int32)
+        parts.append(tpatch.extract_windows(blurred, x0, y0, P, P))
+    patch_all = torch.cat(parts, dim=1)
+    angle = torb.orientation_from_patches(patch_all)
+    packed, signed = torb.brief_from_patches(patch_all, angle)
+    return angle, packed, signed
+
+
+def test_extract_batch_one_window_call_matches_per_level_reference(monkeypatch):
+    """extract_batch cuts every level's windows in ONE extract_windows_levels
+    call, and its outputs are bit for bit those of the per-level window
+    stage on a rendered stereo pair (5 levels, some of them small)."""
+    imgs = torch.from_numpy(_frames(320, 240, n_points=400))
+    kw = dict(n_levels=5, scale=1.2, total=600, edge_margin=19, fast_hi=20.0, fast_lo=7.0)
+    calls = []
+    fused = tpatch.extract_windows_levels
+    monkeypatch.setattr(tpatch, "extract_windows_levels", lambda *a: calls.append(a[1]) or fused(*a))
+    keys = text.extract_batch(imgs, **kw)
+    assert calls == [[q for q in text.level_quotas(600, 5, 1.2) if q > 0]]
+    angle, packed, signed = _extract_batch_per_level(imgs, **kw)
+    assert keys.valid.sum() > 400
+    np.testing.assert_array_equal(keys.angle.numpy(), angle.numpy())
+    np.testing.assert_array_equal(keys.packed.numpy(), packed.numpy())
+    np.testing.assert_array_equal(keys.desc.numpy(), signed.numpy())
 
 
 def _frames(width, height, n_points=300, seed=7):

@@ -1,6 +1,13 @@
 """Parity of the PyTorch port (vslam_torch) against vslam_tpu on the CPU:
-SE(3) geometry, pyramid levels, Hamming distances, config and host
-helpers. Inputs are made with numpy from a seed and handed to both."""
+SE(3) geometry, pyramid levels, Hamming distances, config, the port's own
+copies of the synthetic scene and the ATE, and a check that the port
+loads nothing of vslam_tpu. Inputs are made with numpy from a seed and
+handed to both."""
+
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -10,10 +17,10 @@ import jax.numpy as jnp
 
 from vslam_torch.geometry import se3 as tse3
 from vslam_torch.ops import hamming as tham, pyramid as tpyr
-from vslam_torch.utils import config as tcfg, host
+from vslam_torch.utils import config as tcfg, synthetic as tsyn, trajectory as ttraj
 from vslam_tpu.geometry import se3 as jse3
 from vslam_tpu.ops import hamming as jham, pyramid as jpyr
-from vslam_tpu.utils import config as jcfg, synthetic
+from vslam_tpu.utils import config as jcfg, synthetic, trajectory as jtraj
 
 torch.set_num_threads(2)  # xdist runs several workers on one box
 
@@ -175,8 +182,84 @@ def test_config_from_dict_and_file_match_jax():
         tcfg.ConfigFile.from_dict(None)
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 def test_host_helpers_are_the_jax_package_files():
-    s_t = host.make_scene(n_frames=2, n_points=50, width=96, height=64, fps=10.0, seed=1)
+    """The port's own copies (utils/synthetic.py, utils/trajectory.py)
+    give what the JAX package's files give."""
+    s_t = tsyn.make_scene(n_frames=2, n_points=50, width=96, height=64, fps=10.0, seed=1)
     s_j = synthetic.make_scene(n_frames=2, n_points=50, width=96, height=64, fps=10.0, seed=1)
     np.testing.assert_array_equal(s_t.render(1), s_j.render(1))
-    assert host.ate_rmse(s_t.poses_c2w, s_j.poses_c2w, align=False) == 0.0
+    assert ttraj.ate_rmse(s_t.poses_c2w, s_j.poses_c2w, align=False) == 0.0
+
+
+SCENE_CASES = [
+    dict(n_frames=4, n_points=120, width=160, height=120, fps=20.0, seed=3),
+    dict(n_frames=3, n_points=80, width=128, height=96, fps=10.0, seed=5, texture="distinct",
+         motion="lateral", noise_std=2.0, gain_drift=0.1),
+    dict(n_frames=3, n_points=80, width=128, height=96, fps=10.0, seed=9, texture="natural",
+         n_occluders=2, ramp_tau=0.5),
+    dict(n_frames=3, n_points=60, width=128, height=96, fps=10.0, seed=11, texture="repeated",
+         motion="excited", lowtex_span=(3.0, 6.0, 0.3)),
+]
+
+
+@pytest.mark.parametrize("kw", SCENE_CASES)
+def test_port_scene_and_ate_equal_the_jax_package(kw):
+    """The same seeded scene through both packages: identical frames (both
+    eyes), poses, IMU and landmarks; identical ATE, aligned and not."""
+    s_t, s_j = tsyn.make_scene(**kw), synthetic.make_scene(**kw)
+    for name in ("K", "points_w", "patches", "poses_c2w", "velocities", "imu", "times"):
+        np.testing.assert_array_equal(getattr(s_t, name), getattr(s_j, name), err_msg=name)
+    for f in range(kw["n_frames"]):
+        for right in (False, True):
+            np.testing.assert_array_equal(s_t.render(f, right=right), s_j.render(f, right=right))
+    np.testing.assert_array_equal(s_t.project_points(1)[0], s_j.project_points(1)[0])
+    rng = np.random.default_rng(kw["seed"])
+    est = s_t.poses_c2w.copy()
+    est[:, :3, 3] += rng.normal(0.0, 0.05, size=(len(est), 3))
+    for align, with_scale in ((False, False), (True, False), (True, True)):
+        a_t = ttraj.ate_rmse(est, s_t.poses_c2w, align=align, with_scale=with_scale)
+        a_j = jtraj.ate_rmse(est, s_j.poses_c2w, align=align, with_scale=with_scale)
+        assert a_t == a_j and a_t > 0.0
+
+
+def test_port_loads_nothing_of_the_jax_package():
+    """Every module of vslam_torch, plus chip_smoke.py's imports, in a fresh
+    interpreter: no module named vslam_tpu* is loaded and no loaded
+    module's file lies under vslam_tpu/."""
+    code = textwrap.dedent(
+        """
+        import ast, importlib, pathlib, pkgutil, sys
+        repo = pathlib.Path.cwd().resolve()
+        import vslam_torch
+        for m in pkgutil.walk_packages(vslam_torch.__path__, "vslam_torch."):
+            importlib.import_module(m.name)
+        tree = ast.parse((repo / "chip_smoke.py").read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                for a in node.names:
+                    importlib.import_module(a.name)
+            elif isinstance(node, ast.ImportFrom) and node.module != "__future__":
+                mod = importlib.import_module(node.module)
+                for a in node.names:
+                    if not hasattr(mod, a.name):
+                        importlib.import_module(node.module + "." + a.name)
+        jax_pkg = repo / "vslam_tpu"
+        by_name = [m for m in sys.modules if m.split(".")[0].startswith("vslam_tpu")]
+        by_file = [
+            m for m, mod in list(sys.modules.items())
+            if getattr(mod, "__file__", None)
+            and pathlib.Path(mod.__file__).resolve().is_relative_to(jax_pkg)
+        ]
+        assert not by_name and not by_file, (by_name, by_file)
+        assert "chip_smoke" not in sys.modules
+        print("NO_VSLAM_TPU_OK", len([m for m in sys.modules if m.startswith("vslam_torch")]))
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0 and "NO_VSLAM_TPU_OK" in proc.stdout, proc.stderr[-3000:]

@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from vslam_torch.models import convert, map_state as tms, tracker as ttr
-from vslam_torch.utils import host
+from vslam_torch.utils import trajectory as ttraj
 from vslam_tpu.models import map_state as jms, tracker as jtr
 from vslam_tpu.utils import synthetic, trajectory
 
@@ -136,7 +136,7 @@ def test_slice_matches_jax_trajectory_and_keyframes(scene, both_runs):
     np.testing.assert_allclose(tp, jp, atol=1e-3, rtol=0)
     gt = scene.poses_c2w[:N_FRAMES]
     ate_j = trajectory.ate_rmse(jp, gt, align=False)
-    ate_t = host.ate_rmse(tp, gt, align=False)
+    ate_t = ttraj.ate_rmse(tp, gt, align=False)
     assert ate_j < 0.03 and ate_t < 0.03, (ate_j, ate_t)
     assert abs(tt.world.n_landmarks - jt.world.n_landmarks) <= 0.02 * jt.world.n_landmarks
 
@@ -246,9 +246,9 @@ def test_port_never_imports_jax():
         torch.set_num_threads(1)
         import vslam_torch
         from vslam_torch.models import map_state, tracker
-        from vslam_torch.utils import host
+        from vslam_torch.utils import synthetic
 
-        s = host.make_scene(n_frames=2, n_points=200, width=160, height=120, fps=10.0, seed=3)
+        s = synthetic.make_scene(n_frames=2, n_points=200, width=160, height=120, fps=10.0, seed=3)
         p = tracker.TrackerParams(n_features=128, n_levels=2, active_size=256)
         w = map_state.WorldMap(lm_capacity=1024, kf_capacity=8, keys_per_kf=128, device="cpu")
         t = tracker.StereoTracker(s.K, s.baseline, 160, 120, w, p, device="cpu")

@@ -30,8 +30,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # entry point -> argument types; restype is always int (a cudaError_t)
 SIGNATURES = {
-    # img, x0, y0, out, B, q, h, w, P, Pw, stream
-    "extract_windows_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # level table (host int64 rows: img, h, w, first), n_levels, x0, y0,
+    # out, B, N, P, Pw, stream
+    "extract_windows_levels_f32": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,0 +1,249 @@
+"""Device and host timing of the kernels on a CUDA card, and an A/B timing
+of the window stage of one stereo frame.
+
+``primed_device_ms`` times what the DEVICE spends on a call: a spin kernel
+(``torch.cuda._sleep``) is queued before the start event and lasts longer
+than the host takes to queue the timed calls, so the device reaches the
+start event only once every call is queued, and the window between the
+events holds device work alone, not host enqueue. ``host_ms_per_call`` is
+the host's side: wall time per call, with no synchronisation in the loop.
+
+Run as a script it times the window stage of one frame at the bench
+configuration (752x480, 8 levels at scale 1.2, 1024 keys per view, L+R) in
+the ``vslam_torch`` package found under ``--tree`` (default: this
+checkout), so two versions of the package can be compared in one run on
+one card:
+
+    python3 vslam_torch/kernels/timing.py --tree DIR
+
+It prints one JSON line. A tree whose ``ops/patches.py`` has
+``extract_windows_levels`` cuts the frame in one launch; an older tree in
+one ``extract_windows`` call per level. Inputs are made from a seed.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+_CYCLES_PER_MS: float | None = None
+
+
+def _cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    global _CYCLES_PER_MS
+    if _CYCLES_PER_MS is None:
+        cycles = 10_000_000
+        torch.cuda._sleep(cycles)  # warm-up
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        _CYCLES_PER_MS = cycles / a.elapsed_time(b)
+    return _CYCLES_PER_MS
+
+
+def host_ms_per_call(fn, reps: int = 200, warmup: int = 5) -> float:
+    """Host wall time per call of fn(), no synchronisation in the loop."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / reps
+
+
+def wall_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median wall time of fn() followed by a synchronisation."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def primed_device_ms(fn, reps: int = 20, rounds: int = 9, warmup: int = 3) -> float:
+    """Median over `rounds` of the device time per call of fn(), `reps`
+    calls back to back between two CUDA events on a primed stream.
+
+    A round whose enqueue outlasted the spin (the device may then have
+    waited on the host) is discarded; the spin is doubled, and after two
+    misses `reps` is halved, since a full launch queue also stalls the
+    host. It raises if even one call cannot be primed."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    sleep_ms = 3.0 * host_ms_per_call(fn, reps=reps, warmup=0) * reps + 1.0
+    times, misses = [], 0
+    while len(times) < rounds:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(sleep_ms * _cycles_per_ms()))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.synchronize()
+        if host_ms < sleep_ms:
+            times.append(a.elapsed_time(b) / reps)
+            continue
+        misses += 1
+        if misses > 8:
+            raise RuntimeError(f"primed timing: enqueue of {reps} calls took {host_ms} ms")
+        sleep_ms *= 2.0
+        if misses % 2 == 0 and reps > 1:
+            reps //= 2
+    return statistics.median(times)
+
+
+def gather_index(levels, counts, x0, y0, P: int) -> list:
+    """Per level with slots, the advanced index (b, ys, xs) of its PxP
+    windows, corners clamped as the kernel clamps them: ``levels[l][ix]``
+    is one PyTorch call that cuts the level's windows."""
+    idx, first = [], 0
+    ar = torch.arange(P, device=x0.device)
+    for img, q in zip(levels, counts):
+        if q:
+            B, h, w = img.shape
+            xs = x0[:, first:first + q].long().clamp(0, w - P)[..., None] + ar
+            ys = y0[:, first:first + q].long().clamp(0, h - P)[..., None] + ar
+            b = torch.arange(B, device=x0.device)[:, None, None, None]
+            idx.append((img, (b, ys[..., :, None], xs[..., None, :])))
+        first += q
+    return idx
+
+
+def window_bytes(idx, x0, P: int) -> tuple[int, int]:
+    """(bytes, distinct pixels) the window stage must move for these
+    inputs: the (B, N, P, P) f32 output written once, each distinct level
+    pixel a window covers read once, the int32 corners read once."""
+    covered = 0
+    for img, ix in idx:
+        mask = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
+        mask[ix] = True
+        covered += int(mask.sum())
+    B, N = x0.shape
+    return 4 * (B * N * P * P + covered + 2 * B * N), covered
+
+
+def _bench_frame_inputs(pyramid, seed: int = 3):
+    """The window stage's inputs for one stereo frame at the bench
+    configuration: the 8 blurred levels of a seeded image pair, the level
+    quotas, and seeded corners including the extreme ones."""
+    import numpy as np
+
+    H, W, n_levels, scale, total, P = 480, 752, 8, 1.2, 1024, 31
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(0.0, 255.0, size=(2, H, W)).astype(np.float32)).to(dev)
+    inv = 1.0 / scale
+    first = total * (1.0 - inv) / (1.0 - inv**n_levels)
+    quotas = [int(round(first * inv**l)) for l in range(n_levels - 1)]
+    quotas.append(max(total - sum(quotas), 0))
+    levels, x0s, y0s, cur = [], [], [], img
+    for l, q in enumerate(quotas):
+        h, w = int(round(H * inv**l)), int(round(W * inv**l))
+        if l:
+            cur = pyramid.resize_bilinear_batch(cur, h, w)
+        levels.append(pyramid.gaussian_blur_batch(cur).contiguous())
+        x0 = rng.integers(0, w - P + 1, size=(2, q)).astype(np.int32)
+        y0 = rng.integers(0, h - P + 1, size=(2, q)).astype(np.int32)
+        x0[:, :2], y0[:, :2] = [0, w - P], [0, h - P]
+        x0s.append(x0)
+        y0s.append(y0)
+    x0 = torch.from_numpy(np.concatenate(x0s, 1)).to(dev)
+    y0 = torch.from_numpy(np.concatenate(y0s, 1)).to(dev)
+    torch.cuda.synchronize()
+    return img, levels, quotas, x0, y0, P
+
+
+def main(argv=None) -> int:
+    import argparse
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parents[2]),
+                    help="directory that holds the vslam_torch package to time")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("timing.py needs a CUDA device")
+    tree = pathlib.Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    from vslam_torch.ops import extract, patches, pyramid
+
+    if not pathlib.Path(patches.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"imported {patches.__file__}, not the package under {tree}")
+    img, levels, quotas, x0, y0, P = _bench_frame_inputs(pyramid)
+    starts = [sum(quotas[:l]) for l in range(len(quotas))]
+    per_level = [
+        (lv, x0[:, s:s + q].contiguous(), y0[:, s:s + q].contiguous())
+        for lv, s, q in zip(levels, starts, quotas)
+    ]
+
+    def per_level_calls():
+        for lv, xl, yl in per_level:
+            patches.extract_windows(lv, xl, yl, P, P)
+
+    def plain():
+        for lv, xl, yl in per_level:
+            patches.extract_windows_ref(lv, xl, yl, P, P)
+
+    idx = gather_index(levels, quotas, x0, y0, P)
+
+    def library():
+        for img, ix in idx:
+            img[ix]
+
+    fused = getattr(patches, "extract_windows_levels", None)
+    stage = (lambda: fused(levels, quotas, x0, y0, P, P)) if fused else per_level_calls
+    # the single-level entry, one call per level: the parent's stage itself
+    single = {
+        "per_level_calls_device_ms": primed_device_ms(per_level_calls),
+        "per_level_calls_host_ms": host_ms_per_call(per_level_calls),
+    } if fused else {}
+    n0 = patches.LAUNCHES
+    stage()
+    launches = patches.LAUNCHES - n0
+    batch = lambda: extract.extract_batch(img, n_levels=8, scale=1.2, total=1024)  # noqa: E731
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    frame_bytes, covered = window_bytes(idx, x0, P)
+    print(json.dumps({
+        "tree": str(tree),
+        "card": smi,
+        "launches_per_frame": launches,
+        "frame_bytes": frame_bytes,
+        "covered_pixels": covered,
+        "bound_ms": frame_bytes / HBM_BYTES_PER_S * 1e3,
+        "stage_device_ms": primed_device_ms(stage),
+        "stage_host_ms": host_ms_per_call(stage),
+        **single,
+        "plain_device_ms": primed_device_ms(plain, reps=4),
+        "library_device_ms": primed_device_ms(library, reps=8),
+        "extract_batch_host_ms": host_ms_per_call(batch, reps=20, warmup=3),
+        "extract_batch_wall_ms": wall_ms(batch),
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

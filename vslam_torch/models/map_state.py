@@ -178,7 +178,8 @@ def gather_active(m: MapArrays, ids: torch.Tensor) -> dict:
 
 class WorldMap:
     """Host-side facade: slot allocation, covisibility, host mirrors. The
-    device arrays live in ``self.arrays`` on ``device``."""
+    device arrays live in ``self.arrays`` on ``device`` (the GPU unless
+    the caller asks for the CPU)."""
 
     def __init__(
         self,
@@ -187,7 +188,7 @@ class WorldMap:
         keys_per_kf=2048,
         right_obs_per_kf=256,
         *,
-        device,
+        device="cuda",
     ):
         self.device = torch.device(device)
         self.arrays = make_map(

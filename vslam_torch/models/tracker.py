@@ -457,8 +457,8 @@ class StereoTracker:
     ``track()`` tracks a frame and processes the frame ``pipeline_depth``
     frames older (pose bookkeeping, KF policy, KF insertion); ``flush()``
     drains; ``trajectory()`` flushes. ``self.pose`` is the newest PROCESSED
-    frame's pose. Every tensor lives on ``device``, which must be the
-    world map's device."""
+    frame's pose. Every tensor lives on ``device`` (the GPU unless the
+    caller asks for the CPU), which must be the world map's device."""
 
     def __init__(
         self,
@@ -470,7 +470,7 @@ class StereoTracker:
         params: TrackerParams | None = None,
         imu_cfg=None,
         *,
-        device,
+        device="cuda",
     ):
         if imu_cfg is not None:
             raise NotImplementedError("vslam_torch: the IMU tracking path is not ported yet")

@@ -1,8 +1,9 @@
 """Multi-level ORB extraction: pyramid -> FAST -> ANMS -> patch windows ->
 orientation -> BRIEF (port of vslam_tpu/ops/extract.py).
 
-The 31x31 patches of every level come from :func:`patches.extract_windows`,
-the hand-written CUDA kernel on a GPU tensor.
+The 31x31 patches of every level come from one call of
+:func:`patches.extract_windows_levels`, the hand-written CUDA kernel on a
+GPU tensor (one launch per batch, all levels).
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ def extract_batch(
     half = P // 2
 
     cur = imgs
-    xs, resps, valids, patch_parts = [], [], [], []
+    xs, resps, valids, blurred, counts = [], [], [], [], []
     slot_level: list[int] = []
     for l in range(n_levels):
         h, w = shapes[l]
@@ -72,7 +73,7 @@ def extract_batch(
         quota = quotas[l]
         if quota <= 0:
             continue
-        blurred = pyramid.gaussian_blur_batch(cur)
+        blurred.append(pyramid.gaussian_blur_batch(cur))
         margin = min(edge_margin, min(h, w) // 4)
         # ANMS cell adapted to the level quota (vslam_tpu/ops/extract.py:84-90)
         cell_l = max(8, min(cell, int((h * w / max(quota, 1)) ** 0.5)))
@@ -88,19 +89,18 @@ def extract_batch(
         resps.append(resp)
         valids.append(valid)
         slot_level += [l] * quota
-
-        # the clip stays BEFORE the kernel call: the kernel takes corners
-        # already inside [0, w-P] x [0, h-P]
-        x0 = torch.clamp(xy[:, :, 0] - half, 0, w - P).to(torch.int32)
-        y0 = torch.clamp(xy[:, :, 1] - half, 0, h - P).to(torch.int32)
-        patch_parts.append(patches.extract_windows(blurred, x0, y0, P, P))
+        counts.append(quota)
 
     xy_lvl = torch.cat(xs, dim=1)  # (B, N, 2) level coords
     resp = torch.cat(resps, dim=1)
     valid = torch.cat(valids, dim=1)
     N = xy_lvl.shape[1]
-    lvl, sf = _slot_tables(tuple(slot_level), scale, dev)
-    patch_all = torch.cat(patch_parts, dim=1)  # (B, N, P, P)
+    lvl, sf, lim = _slot_tables(tuple(slot_level), scale, tuple(shapes), P, dev)
+    # top-left corners of every slot, clipped into its level, as the JAX
+    # extractor clips them per level (vslam_tpu/ops/extract.py:114-115)
+    corner = torch.minimum((xy_lvl - half).clamp_(min=0), lim).to(torch.int32)
+    x0, y0 = corner.permute(2, 0, 1).contiguous()  # (B, N) each
+    patch_all = patches.extract_windows_levels(blurred, counts, x0, y0, P, P)
 
     angle = orb.orientation_from_patches(patch_all)
     packed, signed = orb.brief_from_patches(patch_all, angle)
@@ -123,11 +123,14 @@ def scale_factors(n_levels: int = 8, scale: float = 1.2) -> np.ndarray:
 # Constant tables live on the device once (a host tensor per call would be
 # a host->device copy, which synchronizes the stream).
 @functools.lru_cache(maxsize=None)
-def _slot_tables(slot_level: tuple, scale: float, device: torch.device):
-    """(octave per key slot int64, scale^octave per slot f32) on `device`."""
+def _slot_tables(slot_level: tuple, scale: float, shapes: tuple, P: int, device: torch.device):
+    """Per key slot, on `device`: octave (int64), scale^octave (f32) and the
+    largest top-left corner of a PxP window in its level, (w_l - P, h_l - P)
+    (int64)."""
     lvl = np.array(slot_level, np.int64)
     sf = np.array([scale**l for l in slot_level], np.float32)
-    return torch.from_numpy(lvl).to(device), torch.from_numpy(sf).to(device)
+    lim = np.array([(shapes[l][1] - P, shapes[l][0] - P) for l in slot_level], np.int64)
+    return tuple(torch.from_numpy(a).to(device) for a in (lvl, sf, lim))
 
 
 @functools.lru_cache(maxsize=None)
