@@ -25,6 +25,28 @@ own line:
    exact ground truth (must be <= 0.05 m);
 5. card vs CPU: the first 8 frames again on the card and on the CPU (the
    plain versions); keyframe slots must be equal, per-frame poses within
+   1e-3 m / 1e-3 rad;
+6. system: VSlamSystem (tracker + the synchronous local mapper at every
+   keyframe: triangulation, the 2-round Schur BA, the write-back) on the
+   card over the bench's 80-frame scene (752x480, seed 3, 900 points,
+   20 fps; the bench's tracker parameters and map capacities), frames
+   staged on the card: fps, per-frame and per-BA wall p50/p90, LM
+   iterations, keyframes, landmarks, killed observations, ATE (must be
+   <= 0.05 m; phase 4's tracker-only ATE beside it), extract_windows
+   launches (one per frame, 80) and plain calls on the card (0), peak
+   device memory; then the same run again, which must give the same
+   trajectory bit for bit;
+7. BA: the last window that phase 6 solved, as a BAProblem, solved twice
+   on the card (results must be bit-identical) and once on the CPU (poses
+   within 1e-4 m / 1e-4 rad, the kill mask identical except rows whose
+   chi2 lies within 1e-3 relative of the threshold on both sides, which
+   are printed); wall time per solve, LM iterations per round, and the
+   kernel launches, stream syncs and device busy time of one solve and
+   of each piece of an LM iteration (torch.profiler); then the same for
+   one whole LocalMapper.run on the final map and for the
+   triangulation's batched eigh alone;
+8. system card vs CPU: the first 12 frames through the facade on the card
+   and on the CPU; the same keyframe slots and BA count, poses within
    1e-3 m / 1e-3 rad.
 
 The second-to-last line is the kernel report {"kernels": [...]}, the last
@@ -42,10 +64,12 @@ import numpy as np
 import torch
 
 from vslam_torch import kernels
+from vslam_torch.geometry import triangulate
 from vslam_torch.kernels import timing
-from vslam_torch.models import map_state, tracker
-from vslam_torch.ops import extract, patches, pyramid
+from vslam_torch.models import local_mapper, map_state, system, tracker
+from vslam_torch.ops import extract, patches, pyramid, schur
 from vslam_torch.utils import synthetic, trajectory
+from vslam_torch.utils.config import ConfigFile
 
 # the bench configuration (bench.py:341-345) and its scene
 WIDTH, HEIGHT, SEED, N_FRAMES = 752, 480, 3, 40
@@ -55,6 +79,10 @@ PATCH = 31
 ATE_GATE_M = 0.05
 CPU_FRAMES = 8
 POSE_TOL_M, POSE_TOL_RAD = 1e-3, 1e-3
+# the system phases: the bench's scene and map capacities (bench.py:65-72, 341-345)
+SYS_FRAMES, SYS_CPU_FRAMES = 80, 12
+SYS_CAPS = dict(lm_capacity=1 << 15, kf_capacity=128)
+BA_TOL_M, BA_TOL_RAD, CHI2_BAND = 1e-4, 1e-4, 1e-3
 
 
 def say(phase: str, **fields):
@@ -189,7 +217,7 @@ def _run_tracker(scene, frames, device):
     return trk, poses
 
 
-def phase_main_path(scene) -> tuple[int, list]:
+def phase_main_path(scene) -> tuple[int, list, float]:
     t0 = time.perf_counter()
     pairs = [np.stack([scene.render(f), scene.render(f, right=True)]) for f in range(N_FRAMES)]
     render_s = time.perf_counter() - t0
@@ -237,7 +265,19 @@ def phase_main_path(scene) -> tuple[int, list]:
         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
     if not ate <= ATE_GATE_M:
         raise AssertionError(f"ATE {ate} m > {ATE_GATE_M} m")
-    return launches, pairs
+    return launches, pairs, ate
+
+
+def _pose_diff(a: np.ndarray, b: np.ndarray):
+    """Per-pose translation distance and relative rotation angle (from the
+    skew part and the trace: arccos of the trace alone cannot resolve
+    angles below ~3e-4 rad in float32)."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    dt = np.linalg.norm(a[:, :3, 3] - b[:, :3, 3], axis=1)
+    R = np.einsum("fji,fjk->fik", a[:, :3, :3], b[:, :3, :3])
+    skew = np.stack([R[:, 2, 1] - R[:, 1, 2], R[:, 0, 2] - R[:, 2, 0], R[:, 1, 0] - R[:, 0, 1]], -1)
+    ang = np.arctan2(0.5 * np.linalg.norm(skew, axis=1), 0.5 * (np.trace(R, axis1=1, axis2=2) - 1.0))
+    return dt, ang
 
 
 def phase_card_vs_cpu(scene, pairs):
@@ -249,17 +289,221 @@ def phase_card_vs_cpu(scene, pairs):
     n = t_gpu.world.n_keyframes
     if not np.array_equal(t_gpu.world.kf_frame_idx[:n], t_cpu.world.kf_frame_idx[:n]):
         raise AssertionError("keyframes fired at different frames on card and CPU")
-    p_gpu, p_cpu = p_gpu.astype(np.float64), p_cpu.astype(np.float64)
-    dt = np.linalg.norm(p_gpu[:, :3, 3] - p_cpu[:, :3, 3], axis=1)
-    # relative rotation angle from its skew part and trace (arccos of the
-    # trace alone cannot resolve angles below ~3e-4 rad in float32)
-    R = np.einsum("fji,fjk->fik", p_gpu[:, :3, :3], p_cpu[:, :3, :3])
-    skew = np.stack([R[:, 2, 1] - R[:, 1, 2], R[:, 0, 2] - R[:, 2, 0], R[:, 1, 0] - R[:, 0, 1]], -1)
-    ang = np.arctan2(0.5 * np.linalg.norm(skew, axis=1), 0.5 * (np.trace(R, axis1=1, axis2=2) - 1.0))
+    dt, ang = _pose_diff(p_gpu, p_cpu)
     say("card_vs_cpu", frames=CPU_FRAMES, keyframes=t_gpu.new_kf_slots,
         max_dt_m=float(dt.max()), max_drot_rad=float(ang.max()))
     if dt.max() > POSE_TOL_M or ang.max() > POSE_TOL_RAD:
         raise AssertionError(f"card and CPU poses differ: {dt.max()} m, {ang.max()} rad")
+
+
+def _system(scene, device):
+    """The facade at the bench configuration, from a config in the
+    reference's schema (a rectified rig matching the scene)."""
+    K = scene.K
+    cam = {"fx": float(K[0, 0]), "fy": float(K[1, 1]), "cx": float(K[0, 2]), "cy": float(K[1, 2])}
+    conf = ConfigFile.from_dict({
+        "rectified": True, "slamMode": 1, "Camera_l": dict(cam), "Camera_r": dict(cam),
+        "Camera": {"width": WIDTH, "height": HEIGHT, "fps": 20.0, "bl": float(scene.baseline)},
+        "FE": {"nFeatures": PARAMS["n_features"], "nLevels": PARAMS["n_levels"], "imScale": 1.2},
+    })
+    return system.VSlamSystem(
+        conf, **SYS_CAPS, tracker_params=tracker.TrackerParams(**PARAMS), device=device
+    )
+
+
+def _run_system(sys_, frames):
+    for fr in frames:
+        sys_.track_stereo(fr[0], fr[1])
+    sys_.exit()
+    return sys_.trajectory()
+
+
+def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system.VSlamSystem]:
+    t0 = time.perf_counter()
+    pairs = [np.stack([scene.render(f), scene.render(f, right=True)]) for f in range(SYS_FRAMES)]
+    render_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    frames = [torch.from_numpy(p).to(dev) for p in pairs]
+    torch.cuda.synchronize()
+    plain = {n: getattr(patches, n) for n in ("extract_windows_ref", "extract_windows_levels_ref")}
+    plain_devices = []
+
+    def counted(fn):
+        def run(*args):
+            plain_devices.append(args[2].device.type)
+            return fn(*args)
+        return run
+
+    # keep the last window the mapper solved (phase 7 solves it again)
+    solve = local_mapper.schur.local_ba_two_rounds
+    windows = []
+
+    def recording(p, *args, **kwargs):
+        windows.append(p)
+        return solve(p, *args, **kwargs)
+
+    sys_ = _system(scene, dev)
+    torch.cuda.reset_peak_memory_stats()
+    for n, fn in plain.items():
+        setattr(patches, n, counted(fn))
+    local_mapper.schur.local_ba_two_rounds = recording
+    patches.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        poses = _run_system(sys_, frames)
+        torch.cuda.synchronize()
+    finally:
+        local_mapper.schur.local_ba_two_rounds = solve
+        for n, fn in plain.items():
+            setattr(patches, n, fn)
+    run_s = time.perf_counter() - t0
+    launches, plain_calls = patches.LAUNCHES, len(plain_devices)
+
+    if launches != SYS_FRAMES:
+        raise AssertionError(f"extract_windows launched {launches} times, want {SYS_FRAMES}")
+    if plain_calls:
+        raise AssertionError(f"the plain window gather ran {plain_calls} times ({plain_devices})")
+    if poses.shape != (SYS_FRAMES, 4, 4) or not np.isfinite(poses).all():
+        raise AssertionError(f"bad trajectory {poses.shape}")
+    m = sys_.mapper
+    if m.ba_count < 2 or len(windows) != m.ba_count:
+        raise AssertionError(f"{m.ba_count} local-BA runs, {len(windows)} windows recorded")
+    ate = trajectory.ate_rmse(poses, scene.poses_c2w[:SYS_FRAMES], align=False)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    # the same run again: the card must reproduce it bit for bit
+    repeat = _run_system(_system(scene, dev), frames)
+    trk_st, ba_st = sys_.tracker.metrics.summary(), m.metrics.summary()
+    c = m.counters
+    say("system", frames=SYS_FRAMES, fps=SYS_FRAMES / run_s, run_s=run_s, render_s=render_s,
+        frame_p50_ms=trk_st["track"]["p50_ms"], frame_p90_ms=trk_st["track"]["p90_ms"],
+        frame_p50_ms_first40=1e3 * float(np.median(sys_.tracker.metrics.samples("track")[:N_FRAMES])),
+        ba_runs=m.ba_count, ba_p50_ms=ba_st["run"]["p50_ms"], ba_p90_ms=ba_st["run"]["p90_ms"],
+        ba_total_s=ba_st["run"]["total_s"],
+        lm_iters_round1=c.get("lm_iters_round1"), lm_iters_round2=c.get("lm_iters_round2"),
+        keyframes=len(sys_.tracker.new_kf_slots), landmarks=sys_.world.n_landmarks,
+        killed_obs=c.get("obs_killed"), obs_rows_truncated=c.get("obs_rows_truncated"),
+        ate_m=ate, tracker_only_ate_m_phase4=tracker_ate,
+        extract_windows_launches=launches, plain_calls_on_card=plain_calls,
+        peak_mem_mb=peak_mb, repeat_bit_identical=bool(np.array_equal(poses, repeat)))
+    if not ate <= ATE_GATE_M:
+        raise AssertionError(f"system ATE {ate} m > {ATE_GATE_M} m")
+    if not np.array_equal(poses, repeat):
+        raise AssertionError("a second system run on the card gave another trajectory")
+    return launches, pairs, windows[-1], sys_
+
+
+def _solve(p: schur.BAProblem, stats=None):
+    out = schur.local_ba_two_rounds(p, stats=stats)
+    if out[0].poses.is_cuda:
+        torch.cuda.synchronize()
+    return out
+
+
+def _profile_counts(fn) -> dict:
+    """Kernel launches, stream syncs and memcpy calls of one call of fn()
+    (which must end with a synchronize), from the profiler's runtime-API
+    events; the device busy time is the sum of the kernels' own times, the
+    wall time is taken with the profiler on."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    counts = {e.key: e.count for e in events}
+    launch = sum(v for k, v in counts.items() if k in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    sync = sum(v for k, v in counts.items() if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"kernel_launches": launch, "stream_syncs": sync,
+            "memcpy_calls": counts.get("cudaMemcpyAsync", 0),
+            "device_busy_ms": busy_us / 1e3, "profiled_wall_ms": wall_ms}
+
+
+def phase_ba(p: schur.BAProblem, sys_: system.VSlamSystem):
+    cpu = torch.device("cpu")
+    p_cpu = schur.BAProblem(*(t.to(cpu) for t in p))
+    _solve(p)  # warm-up
+    it1, it2 = [], []
+    t0 = time.perf_counter()
+    a = _solve(p, it1)
+    ms_a = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    b = _solve(p, it2)
+    ms_b = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(x, y) for x, y in ((a[0].poses, b[0].poses), (a[0].pts, b[0].pts),
+                                               (a[1], b[1]), (a[2], b[2]), (a[0].obs_valid, b[0].obs_valid)))
+    if not same:
+        raise AssertionError("two solves of one BA problem on the card differ")
+    prof = _profile_counts(lambda: _solve(p))
+    t0 = time.perf_counter()
+    c = _solve(p_cpu)
+    ms_cpu = (time.perf_counter() - t0) * 1e3
+    dt, ang = _pose_diff(a[0].poses.cpu().numpy(), c[0].poses.numpy())
+    valid = p.pose_valid.cpu().numpy()
+    dt, ang = dt[valid], ang[valid]
+    kill_g, kill_c = a[2].cpu().numpy(), c[2].numpy()
+    chi_g = schur.obs_chi2(a[0]).cpu().numpy()
+    chi_c = schur.obs_chi2(c[0]).numpy()
+    differ = np.nonzero(kill_g != kill_c)[0]
+    thr = schur.CHI2_THR
+    rows = [{"row": int(i), "chi2_card": float(chi_g[i]), "chi2_cpu": float(chi_c[i])} for i in differ]
+    near = all(abs(r["chi2_card"] - thr) <= CHI2_BAND * thr and abs(r["chi2_cpu"] - thr) <= CHI2_BAND * thr
+               for r in rows)
+    say("ba", window_poses=int(valid.sum()), obs_rows=int(p.obs_valid.sum()),
+        landmarks=int(p.pt_valid.sum()), bit_identical_on_card=same,
+        lm_iters=it1, card_ms=[ms_a, ms_b], cpu_ms=ms_cpu, **prof,
+        max_dt_m=float(dt.max()), max_drot_rad=float(ang.max()),
+        kills_card=int(kill_g.sum()), kills_cpu=int(kill_c.sum()), kill_rows_differ=rows)
+    if dt.max() > BA_TOL_M or ang.max() > BA_TOL_RAD:
+        raise AssertionError(f"card and CPU BA poses differ: {dt.max()} m, {ang.max()} rad")
+    if not near:
+        raise AssertionError(f"kill masks differ away from the chi2 threshold: {rows}")
+
+    # the pieces of one LM iteration, each alone
+    lam = p.poses.new_tensor(1e-4)
+    blocks = schur._assemble(p)
+    pieces = {
+        "obs_residual_jacobians": lambda: schur._obs_residual_and_jacobians(p),
+        "odometry_residual_jacobians": lambda: schur._odometry_residual_and_jacobians(p),
+        "assemble": lambda: schur._assemble(p),
+        "schur_solve": lambda: schur._schur_solve(p, *blocks, lam),
+        "ba_error": lambda: schur.ba_error(p),
+        "obs_chi2": lambda: schur.obs_chi2(p),
+    }
+    say("ba_breakdown", **{name: _profile_counts(lambda fn=fn: (fn(), torch.cuda.synchronize()))
+                           for name, fn in pieces.items()})
+
+    # one whole LocalMapper.run (triangulation, assembly, BA, write-back,
+    # host bookkeeping) on phase 6's final map, and the DLT's batched eigh
+    # alone at the mapper's shape (1024 candidates, 13 views)
+    slot = sys_.tracker.new_kf_slots[-1]
+    run = _profile_counts(lambda: (sys_.mapper.run(slot), torch.cuda.synchronize()))
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    Pv = torch.randn((13, 3, 4), device="cuda", generator=g)
+    uv = torch.rand((PARAMS["n_features"], 13, 2), device="cuda", generator=g) * WIDTH
+    mask = torch.ones((PARAMS["n_features"], 13), dtype=torch.bool, device="cuda")
+    dlt = _profile_counts(lambda: (triangulate.triangulate_dlt(Pv, uv, mask), torch.cuda.synchronize()))
+    say("mapper_run", kf_slot=slot, **run, dlt_kernel_launches=dlt["kernel_launches"],
+        dlt_stream_syncs=dlt["stream_syncs"] - 1)
+    return prof
+
+
+def phase_system_card_vs_cpu(scene, pairs):
+    sub = pairs[:SYS_CPU_FRAMES]
+    g = _system(scene, "cuda")
+    pg = _run_system(g, [torch.from_numpy(p).cuda() for p in sub])
+    c = _system(scene, "cpu")
+    pc = _run_system(c, [torch.from_numpy(p) for p in sub])
+    if g.tracker.new_kf_slots != c.tracker.new_kf_slots or g.mapper.ba_count != c.mapper.ba_count:
+        raise AssertionError(
+            f"keyframes/BA differ: card {g.tracker.new_kf_slots} {g.mapper.ba_count}, "
+            f"cpu {c.tracker.new_kf_slots} {c.mapper.ba_count}")
+    dt, ang = _pose_diff(pg, pc)
+    say("system_card_vs_cpu", frames=SYS_CPU_FRAMES, keyframes=g.tracker.new_kf_slots,
+        ba_runs=g.mapper.ba_count, max_dt_m=float(dt.max()), max_drot_rad=float(ang.max()))
+    if dt.max() > POSE_TOL_M or ang.max() > POSE_TOL_RAD:
+        raise AssertionError(f"card and CPU system poses differ: {dt.max()} m, {ang.max()} rad")
 
 
 def main() -> int:
@@ -268,14 +512,20 @@ def main() -> int:
     scene = synthetic.make_scene(n_frames=N_FRAMES, n_points=900, width=WIDTH, height=HEIGHT,
                                  fps=20.0, seed=SEED)
     t = phase_kernels(scene, torch.device("cuda"), smi)
-    launches, pairs = phase_main_path(scene)
+    launches_trk, pairs, ate_trk = phase_main_path(scene)
     phase_card_vs_cpu(scene, pairs)
+    sys_scene = synthetic.make_scene(n_frames=SYS_FRAMES, n_points=900, width=WIDTH,
+                                     height=HEIGHT, fps=20.0, seed=SEED)
+    launches, sys_pairs, window, sys_ = phase_system(sys_scene, ate_trk)
+    phase_ba(window, sys_)
+    phase_system_card_vs_cpu(sys_scene, sys_pairs)
     report = {"kernels": [{
         "name": "extract_windows",
         "route": "cuda",
         "source": "vslam_torch/kernels/csrc/extract_windows.cu",
         "replaces": "vslam_tpu/ops/patches.py:141",
         "launches": launches,
+        "launches_by_phase": {"tracker": launches_trk, "system": launches},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],

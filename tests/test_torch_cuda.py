@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA device: the hand-written kernels
-against their plain PyTorch versions, and a short tracker run on the card
-against the same run on the CPU. They skip without a card. This file
+against their plain PyTorch versions, a short tracker run and a short
+VSlamSystem run on the card against the same runs on the CPU, and the
+local BA's bit-reproducibility on the card. They skip without a card. This file
 imports no jax (the GPU machine has none); run it there with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -10,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from vslam_torch.models import map_state, tracker
-from vslam_torch.ops import extract, patches, pyramid
+from vslam_torch.geometry import se3
+from vslam_torch.models import map_state, system, tracker
+from vslam_torch.ops import extract, patches, pyramid, schur
 from vslam_torch.utils import synthetic
+from vslam_torch.utils.config import ConfigFile
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +144,94 @@ def test_tracker_on_card_matches_cpu(dev):
     assert launches == 5 and cpu_launches == 0  # one launch per stereo frame
     assert tg.new_kf_slots == tc.new_kf_slots
     np.testing.assert_allclose(pg, pc, atol=1e-4, rtol=0)
+
+
+def _ba_problem(seed=3, W=6, L=96, n_bad=30) -> schur.BAProblem:
+    """tests/test_ba.py's window (W poses on a forward path, every landmark
+    seen by every pose, stereo on even landmarks, perturbed poses and
+    points) with outliers on stereo rows, built on the CPU without jax."""
+    rng = np.random.default_rng(seed)
+    Kc = torch.tensor([[460.0, 0, 320.0], [0, 460.0, 240.0], [0, 0, 1.0]])
+    xi = torch.tensor([[0.01 * i, 0.02 * i, 0.005 * i, 0.1 * i, 0.01 * i, 0.6 * i] for i in range(W)])
+    poses_gt = se3.se3_expmap(xi)
+    pts_gt = torch.from_numpy(np.stack(
+        [rng.uniform(-6, 6, L), rng.uniform(-4, 4, L), rng.uniform(6, 30, L)], -1
+    ).astype(np.float32))
+    pc = se3.transform_points(se3.inverse(poses_gt), pts_gt[None])  # (W, L, 3)
+    u = 460.0 * pc[..., 0] / pc[..., 2] + 320.0
+    v = 460.0 * pc[..., 1] / pc[..., 2] + 240.0
+    ur = 460.0 * (pc[..., 0] - 0.12) / pc[..., 2] + 320.0
+    uv = torch.stack([u, v, ur], -1).reshape(-1, 3)
+    obs_lm = torch.arange(L).repeat(W)
+    bad = rng.choice(np.nonzero(obs_lm.numpy() % 2 == 0)[0], n_bad, replace=False)
+    uv[bad, :2] += torch.from_numpy(rng.uniform(15, 40, (n_bad, 2)).astype(np.float32))
+    noise = torch.from_numpy(rng.normal(0, 0.02, (W, 6)).astype(np.float32))
+    noise[0] = 0.0
+    n = W * L
+    return schur.BAProblem(
+        poses=poses_gt @ se3.se3_expmap(noise), fixed=torch.arange(W) == 0,
+        pose_valid=torch.ones(W, dtype=torch.bool),
+        pts=pts_gt + torch.from_numpy(rng.normal(0, 0.05, (L, 3)).astype(np.float32)),
+        pt_valid=torch.ones(L, dtype=torch.bool),
+        obs_kf=torch.arange(W).repeat_interleave(L), obs_lm=obs_lm, obs_uv=uv,
+        obs_stereo=obs_lm % 2 == 0, obs_right=torch.zeros(n, dtype=torch.bool),
+        obs_w=torch.ones(n), obs_valid=torch.ones(n, dtype=torch.bool), K=Kc,
+        baseline=torch.tensor(0.12), odo_rel=se3.inverse(poses_gt[:-1]) @ poses_gt[1:],
+        odo_valid=torch.ones(W - 1, dtype=torch.bool),
+    )
+
+
+def _on(p, dev):
+    return schur.BAProblem(*(t.to(dev) for t in p))
+
+
+def test_local_ba_on_card_is_bit_reproducible(dev):
+    """Two solves of one window on the card are bit-identical: the Hessian
+    blocks are summed by a sorted segment sum, not by float atomics."""
+    p = _on(_ba_problem(), dev)
+    a = schur.local_ba_two_rounds(p)
+    b = schur.local_ba_two_rounds(p)
+    for x, y in zip((a[0].poses, a[0].pts, a[0].obs_valid, a[1], a[2]),
+                    (b[0].poses, b[0].pts, b[0].obs_valid, b[1], b[2])):
+        assert torch.equal(x, y)
+
+
+def test_local_ba_on_card_matches_cpu(dev):
+    """The same window on the card and on the CPU: poses within 1e-4,
+    landmarks within 1e-4 of their range, the sweep and kill masks
+    identical."""
+    p = _ba_problem()
+    g = schur.local_ba_two_rounds(_on(p, dev))
+    c = schur.local_ba_two_rounds(p)
+    np.testing.assert_allclose(g[0].poses.cpu().numpy(), c[0].poses.numpy(), atol=1e-4, rtol=0)
+    dist = torch.linalg.norm(g[0].pts.cpu() - c[0].pts, dim=1)
+    assert bool((dist <= 1e-4 * torch.linalg.norm(c[0].pts, dim=1)).all()), float(dist.max())
+    assert torch.equal(g[0].obs_valid.cpu(), c[0].obs_valid)
+    assert torch.equal(g[2].cpu(), c[2])
+
+
+def test_system_on_card_matches_cpu(dev):
+    """Twelve frames of the small system scene through VSlamSystem on the
+    card and on the CPU: the same keyframes and local-BA runs, one
+    extract_windows launch per frame, poses within 1e-3."""
+    scene = synthetic.make_scene(n_frames=12, n_points=400, width=320, height=240, fps=10.0, seed=7)
+    cam = {"fx": 460.0, "fy": 460.0, "cx": 160.0, "cy": 120.0}
+    conf = ConfigFile.from_dict({
+        "rectified": True, "slamMode": 1, "Camera_l": cam, "Camera_r": cam,
+        "Camera": {"width": 320, "height": 240, "fps": 10.0, "bl": 0.12},
+        "FE": {"nFeatures": 512, "nLevels": 4, "imScale": 1.2},
+    })
+    params = tracker.TrackerParams(n_features=512, n_levels=4, active_size=1024, kf_min_stereo=60)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        sys_ = system.VSlamSystem(conf, lm_capacity=8192, kf_capacity=64, tracker_params=params, device=d)
+        n0 = patches.LAUNCHES
+        for f in range(12):
+            sys_.track_stereo(scene.render(f), scene.render(f, right=True))
+        sys_.exit()
+        runs[d.type] = (sys_, sys_.trajectory(), patches.LAUNCHES - n0)
+    (sg, pg, launches), (sc, pc, _) = runs["cuda"], runs["cpu"]
+    assert launches == 12
+    assert sg.tracker.new_kf_slots == sc.tracker.new_kf_slots
+    assert sg.mapper.ba_count == sc.mapper.ba_count >= 2
+    np.testing.assert_allclose(pg, pc, atol=1e-3, rtol=0)

@@ -1,8 +1,8 @@
 """Carry map and tracker state across from vslam_tpu.
 
 The system has no learned weights: what carries across is the BRIEF
-pattern (numpy, shared by construction), the map, and the tracker state.
-Both functions take the JAX objects already fetched to numpy
+pattern (numpy, shared by construction), the map, the tracker state and a
+bundle-adjustment problem. The functions take the JAX objects already fetched to numpy
 (``jax.tree.map(np.asarray, ...)``), so this module imports no JAX.
 
 dtype changes: int32 -> int64 (torch indexing), packed uint32 descriptor
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from vslam_torch.models import map_state
+from vslam_torch.ops import schur
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -55,3 +56,13 @@ def tracker_state_from_jax(state: dict, host: dict, device) -> tuple[dict, dict]
         "new_kf_slots": [int(s) for s in host["new_kf_slots"]],
     }
     return state_t, host_t
+
+
+def ba_problem_from_jax(problem: dict, device) -> schur.BAProblem:
+    """A vslam_tpu ``schur.BAProblem`` as a dict of numpy arrays (field
+    name -> array, e.g. ``{k: np.asarray(v) for k, v in p._asdict().items()}``)
+    -> the port's BAProblem on `device`."""
+    missing = set(schur.BAProblem._fields) - set(problem)
+    if missing:
+        raise KeyError(f"BAProblem fields missing: {sorted(missing)}")
+    return schur.BAProblem(**{k: _tensor(problem[k], device) for k in schur.BAProblem._fields})

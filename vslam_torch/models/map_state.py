@@ -17,6 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from vslam_torch.ops import hamming
+
 DESC_WORDS = 8  # packed descriptor words (32 bits each, int64 storage)
 
 
@@ -85,6 +87,18 @@ def make_map(
         **_lm_fields(lm_capacity, device),
         **_kf_fields(kf_capacity, keys_per_kf, right_obs_per_kf, device),
     )
+
+
+def last_writer(tgt: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
+    """Among the `ok` rows that scatter to one target of n + 1 (n: the
+    discard row), the last row: the one the serial scatter of the CPU and
+    of XLA keeps. A CUDA scatter leaves the winner of duplicate writes
+    undefined, so writes that may collide are masked with this first."""
+    rows = torch.arange(tgt.shape[0], device=tgt.device)
+    last = torch.full((n + 1,), -1, dtype=torch.int64, device=tgt.device).scatter_reduce(
+        0, tgt, torch.where(ok, rows, -1), "amax", include_self=True
+    )
+    return ok & (last[tgt] == rows)
 
 
 def scatter_landmarks(
@@ -158,6 +172,66 @@ def scatter_keyframe(
     m.obs_r_uv[kf_slot] = obs_r_uv
     m.obs_r_oct[kf_slot] = obs_r_oct
     m.obs_r_lm[kf_slot] = obs_r_lm
+    return m
+
+
+def writeback_ba(
+    m: MapArrays,
+    kf_slots: torch.Tensor,  # (Wb,) keyframe slots (padding rows invalid)
+    kf_valid: torch.Tensor,  # (Wb,) bool
+    new_poses: torch.Tensor,  # (Wb, 4, 4)
+    lm_slots: torch.Tensor,  # (Lb,)
+    lm_keep: torch.Tensor,  # (Lb,) bool landmarks to write (others untouched)
+    new_pts: torch.Tensor,  # (Lb, 3)
+    obs_kill_kf: torch.Tensor,  # (Ob,) kf slot of left observations to sever
+    obs_kill_key: torch.Tensor,  # (Ob,) key slot
+    obs_kill: torch.Tensor,  # (Ob,) bool
+    obs_r_kill_kf: torch.Tensor,  # (Obr,) right-only observations to sever
+    obs_r_kill_key: torch.Tensor,  # (Obr,)
+    obs_r_kill: torch.Tensor,  # (Obr,) bool
+) -> MapArrays:
+    """Apply local-BA results in place (reference write-back,
+    src/OptimizationBA.cpp:875-938): optimized KF poses and landmark
+    positions, severed wrong matches, and the severed left observations'
+    descriptors taken out of the landmarks' majority bit-sums.
+
+    The JAX version drops invalid rows (``mode="drop"``). Here: invalid
+    keyframe rows repeat the first valid row's slot AND value (the last KF
+    slot is a real keyframe once capacity fills, so it cannot serve as a
+    scratch row; identical duplicate writes leave no order to decide);
+    invalid landmark rows go to the dump slot P-1; severed cells are set
+    by an exact integer accumulate (add -1 - old id), which is order-free
+    with duplicate non-kill rows aliasing a cell. Descriptor bit-sums are
+    summed with an accumulating scatter, so two killed rows of one
+    landmark both count."""
+    dump = m.lm_pos.shape[0] - 1
+    first = torch.argmax(kf_valid.to(torch.uint8))[None]  # 1-d: no host sync
+    ks = torch.where(kf_valid, kf_slots, kf_slots[first])
+    fill = torch.where(kf_valid.any(), new_poses[first], m.kf_pose[kf_slots[first]])
+    m.kf_pose[ks] = torch.where(kf_valid[:, None, None], new_poses, fill)
+    m.lm_pos[torch.where(lm_keep, lm_slots, dump)] = new_pts
+
+    # pre-sever landmark and descriptor of each killed left row (read
+    # before the cells are written)
+    kf_s = torch.where(obs_kill, obs_kill_kf, 0)
+    key_s = torch.where(obs_kill, obs_kill_key, 0)
+    lm_of = m.obs_lm[kf_s, key_s]
+    d16 = hamming.unpack_signed(m.obs_desc[kf_s, key_s]).to(torch.int16)
+    m.obs_lm.index_put_((kf_s, key_s), torch.where(obs_kill, -1 - lm_of, 0), accumulate=True)
+    rkf_s = torch.where(obs_r_kill, obs_r_kill_kf, 0)
+    rkey_s = torch.where(obs_r_kill, obs_r_kill_key, 0)
+    r_old = m.obs_r_lm[rkf_s, rkey_s]
+    m.obs_r_lm.index_put_((rkf_s, rkey_s), torch.where(obs_r_kill, -1 - r_old, 0), accumulate=True)
+
+    # majority upkeep: a severed observation leaves the landmark's set
+    # (right-camera observations carry no descriptor)
+    hit = obs_kill & (lm_of >= 0)
+    tgt = torch.where(hit, lm_of, dump)
+    m.lm_bitsum.index_put_((tgt,), torch.where(hit[:, None], -d16, 0), accumulate=True)
+    m.lm_nobs.index_put_((tgt,), -hit.to(torch.int16), accumulate=True)
+    bs = m.lm_bitsum[tgt]
+    maj = torch.where(bs > 0, 1, torch.where(bs < 0, -1, m.lm_desc[tgt].to(torch.int16)))
+    m.lm_desc[tgt] = maj.to(torch.int8)
     return m
 
 
@@ -294,3 +368,16 @@ class WorldMap:
         tbl = self.kf_obs_lm[: self.n_keyframes]
         shared = np.isin(tbl, ids) & (tbl >= 0)
         return shared.sum(axis=1).astype(np.int64)
+
+    def observers_of(self, lm_ids: np.ndarray, exclude: np.ndarray, max_n: int) -> np.ndarray:
+        """KF slots outside `exclude` that observe any of `lm_ids`, by
+        observation count descending (stable), at most `max_n`: the gauge
+        anchors of local BA (reference src/OptimizationBA.cpp:445-516)."""
+        if len(lm_ids) == 0 or self.n_keyframes == 0:
+            return np.zeros((0,), np.int64)
+        tbl = self.kf_obs_lm[: self.n_keyframes]
+        counts = (np.isin(tbl, lm_ids) & (tbl >= 0)).sum(axis=1)
+        counts[np.asarray(exclude, np.int64)] = 0
+        cand = np.nonzero(counts > 0)[0]
+        cand = cand[np.argsort(-counts[cand], kind="stable")]
+        return cand[:max_n].astype(np.int64)

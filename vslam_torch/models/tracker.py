@@ -318,6 +318,10 @@ def _prepare_keyframe(
     dev = keys.xy.device
     N = keys.xy.shape[0]
     ok = (match_idx >= 0) & inliers
+    # two landmarks can match one key on a distance tie: the later one
+    # keeps it, as in the serial scatter of the CPU and of XLA (a CUDA
+    # scatter leaves the winner of duplicate writes undefined)
+    ok = map_state.last_writer(torch.where(ok, match_idx, N), ok, N)
     tgt = torch.where(ok, match_idx, N)  # N: out-of-range row, sliced off
     key_lm = torch.full((N + 1,), -1, dtype=torch.int64, device=dev)
     key_lm[tgt] = torch.where(ok, active_ids, -1)

@@ -1,0 +1,375 @@
+"""Local bundle adjustment: batched LM with an explicit Schur complement
+(port of vslam_tpu/ops/schur.py, the single-device unslabbed path).
+
+The reference's GTSAM local BA (src/OptimizationBA.cpp:426-940) as dense
+blocked linear algebra: projection residuals per observation row, a
+sequential-KF odometry chain (sigma 0.01), landmark 3x3 blocks eliminated
+in closed form, the reduced (6W x 6W) camera system solved by Cholesky,
+landmarks back-substituted. Fixed shapes: W pose slots, L landmark slots,
+O observation rows, all masked.
+
+Differences from the JAX version, none of which changes the math:
+- the observation Jacobians are the analytic 3x6 / 3x3 forms (what
+  ``jax.jacfwd`` computes at schur.py:102-110), including the zero
+  derivative of the +-512 px clip and of the ``max(z, 0.05)`` clamp; the
+  19 odometry links keep forward-mode AD (``torch.func.jvp``);
+- the Hessian blocks are summed with ``index_put_(accumulate=True)``
+  under deterministic algorithms: on CUDA that is a sorted segment sum in
+  row order, not atomics, so a solve is bit-reproducible on the card;
+- a failed Cholesky (``info != 0``) yields a NaN step, as JAX's
+  ``cho_factor`` does, and the LM rejects it instead of raising;
+- ``lax.while_loop`` is a host loop that reads the done flag every
+  ``_DONE_CHECK_EVERY`` iterations; the state is frozen once done, so the
+  stop iteration does not depend on that interval.
+
+Not ported: the observation-row sharding (``axis_name``, ROADMAP A12) and
+the slab-chunked reduction (``n_slabs``, A11, global BA); the staged
+``local_ba_round1``/``round2`` belong to the async mapper (not ported).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import torch
+
+from vslam_torch.geometry import se3
+
+CHI2_THR = 7.815  # reference include/OptimizationBA.h:44
+ODOMETRY_SIGMA = 0.01  # reference src/OptimizationBA.cpp:751
+_DONE_CHECK_EVERY = 1  # LM iterations between host reads of the done flag
+
+
+class BAProblem(NamedTuple):
+    poses: torch.Tensor  # (W, 4, 4) cam-to-world
+    fixed: torch.Tensor  # (W,) bool gauge-fixed KFs
+    pose_valid: torch.Tensor  # (W,) bool
+    pts: torch.Tensor  # (L, 3)
+    pt_valid: torch.Tensor  # (L,) bool
+    obs_kf: torch.Tensor  # (O,) int64 -> pose slot
+    obs_lm: torch.Tensor  # (O,) int64 -> landmark slot
+    obs_uv: torch.Tensor  # (O, 3) [u_l, v_l, u_r] ([u_r, v_r, -] when right)
+    obs_stereo: torch.Tensor  # (O,) bool has a right-x row
+    obs_right: torch.Tensor  # (O,) bool right-camera-only projection
+    obs_w: torch.Tensor  # (O,) sqrt information
+    obs_valid: torch.Tensor  # (O,) bool
+    K: torch.Tensor  # (3, 3)
+    baseline: torch.Tensor  # ()
+    odo_rel: torch.Tensor  # (W-1, 4, 4) measured T_i^-1 T_{i+1}
+    odo_valid: torch.Tensor  # (W-1,) bool
+
+
+def _not_ported(axis_name, n_slabs):
+    if axis_name is not None:
+        raise NotImplementedError(
+            "vslam_torch: the sharded local BA (axis_name, ROADMAP A12) is not ported yet"
+        )
+    if n_slabs != 1:
+        raise NotImplementedError(
+            "vslam_torch: the slab-chunked Schur reduction (n_slabs > 1, global BA, "
+            "ROADMAP A11) is not ported yet"
+        )
+
+
+@contextlib.contextmanager
+def _deterministic():
+    prev, warn = (
+        torch.are_deterministic_algorithms_enabled(),
+        torch.is_deterministic_algorithms_warn_only_enabled(),
+    )
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
+def _scatter_add(out: torch.Tensor, index: tuple, values: torch.Tensor) -> torch.Tensor:
+    """out[index] += values, duplicates summed in row order on every device."""
+    with _deterministic():
+        return out.index_put_(index, values, accumulate=True)
+
+
+def _project_residual(T_cw, pt, uv, is_stereo, is_right, K, baseline, with_jac):
+    """Batched over O rows: T_cw (O,4,4) world->camera, pt (O,3). Returns
+    the (O,3) residual [du, dv, du_r] (left projection + right-x row when
+    stereo, or the right-camera projection when is_right), clipped to
+    +-512 px (behind-camera rows cost, see vslam_tpu/ops/schur.py:74-80),
+    and with_jac: (O,3,6) d/d pose tangent of T_wc * exp(xi) and (O,3,3)
+    d/d point."""
+    R = T_cw[:, :3, :3]
+    pc = (R @ pt[..., None])[..., 0] + T_cw[:, :3, 3]
+    x, y = pc[:, 0], pc[:, 1]
+    z = torch.clamp(pc[:, 2], min=0.05)
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    u_l = fx * x / z + cx
+    u_r = fx * (x - baseline) / z + cx
+    r_u = torch.where(is_right, u_r, u_l) - uv[:, 0]
+    r_v = fy * y / z + cy - uv[:, 1]
+    r_ur = torch.where(is_stereo, u_r - uv[:, 2], 0.0)
+    raw = torch.stack([r_u, r_v, r_ur], dim=-1)
+    r = torch.clamp(raw, -512.0, 512.0)
+    if not with_jac:
+        return r, None, None
+
+    def rows(dpc):  # (O, 3, n) camera-point derivative -> (O, 3, n) residual rows
+        dx, dy = dpc[:, 0], dpc[:, 1]
+        dz = dpc[:, 2] * (pc[:, 2] > 0.05)[:, None]
+        zc, zz = z[:, None], (z * z)[:, None]
+        du_l = fx * dx / zc - (fx * x)[:, None] * dz / zz
+        du_r = fx * dx / zc - (fx * (x - baseline))[:, None] * dz / zz
+        dv = fy * dy / zc - (fy * y)[:, None] * dz / zz
+        J = torch.stack(
+            [
+                torch.where(is_right[:, None], du_r, du_l),
+                dv,
+                torch.where(is_stereo[:, None], du_r, 0.0),
+            ],
+            dim=1,
+        )
+        inside = (raw > -512.0) & (raw < 512.0)  # the clip's derivative
+        return J * inside[..., None]
+
+    # T_cw' = exp(-xi) T_cw: d pc / d xi = [hat(pc) | -I]; d pc / d pt = R
+    eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(pc.shape[0], 3, 3)
+    Jp = rows(torch.cat([se3.hat(pc), -eye], dim=-1))
+    Jl = rows(R)
+    return r, Jp, Jl
+
+
+def _obs_residual_and_jacobians(p: BAProblem, with_jac: bool = True):
+    """Residuals (O,3) and Jacobians (O,3,6) / (O,3,3), pre-weighted by
+    obs_w and masked by obs_valid."""
+    T_cw = se3.inverse(p.poses)[p.obs_kf]
+    pt = p.pts[p.obs_lm]
+    r, Jp, Jl = _project_residual(
+        T_cw, pt, p.obs_uv, p.obs_stereo, p.obs_right, p.K, p.baseline, with_jac
+    )
+    w = torch.where(p.obs_valid, p.obs_w, 0.0)[:, None]
+    if not with_jac:
+        return r * w, None, None
+    return r * w, Jp * w[..., None], Jl * w[..., None]
+
+
+def _odometry_fn(Ti, Tj, rel, di, dj):
+    return se3.se3_logmap(
+        se3.inverse(rel) @ se3.inverse(se3.retract(Ti, di)) @ se3.retract(Tj, dj)
+    )
+
+
+def _odometry_residual_and_jacobians(p: BAProblem, with_jac: bool = True):
+    """Between-factor chain r = log(rel^-1 T_i^-1 T_j) / sigma: (W-1,6)
+    residuals and (W-1,6,6) J_i, J_j by forward-mode AD (six tangent
+    directions as one batch)."""
+    Ti, Tj, rel = p.poses[:-1], p.poses[1:], p.odo_rel
+    n = Ti.shape[0]
+    w = torch.where(p.odo_valid, 1.0 / ODOMETRY_SIGMA, 0.0)[:, None]
+    z = torch.zeros((n, 6), dtype=Ti.dtype, device=Ti.device)
+    if not with_jac:
+        return _odometry_fn(Ti, Tj, rel, z, z) * w, None, None
+    Ti6, Tj6, rel6 = (a.expand((6,) + a.shape) for a in (Ti, Tj, rel))
+    z6 = torch.zeros((6, n, 6), dtype=Ti.dtype, device=Ti.device)
+    basis = torch.eye(6, dtype=Ti.dtype, device=Ti.device)[:, None, :].repeat(1, n, 1)
+    r6, ti = torch.func.jvp(lambda d: _odometry_fn(Ti6, Tj6, rel6, d, z6), (z6,), (basis,))
+    _, tj = torch.func.jvp(lambda d: _odometry_fn(Ti6, Tj6, rel6, z6, d), (z6,), (basis,))
+    Ji = ti.permute(1, 2, 0)  # (n, out, tangent direction)
+    Jj = tj.permute(1, 2, 0)
+    return r6[0] * w, Ji * w[..., None], Jj * w[..., None]
+
+
+def ba_error(p: BAProblem, axis_name: str | None = None) -> torch.Tensor:
+    """Total error 0.5 * (||r_obs||^2 + ||r_odo||^2)."""
+    _not_ported(axis_name, 1)
+    r, _, _ = _obs_residual_and_jacobians(p, with_jac=False)
+    ro, _, _ = _odometry_residual_and_jacobians(p, with_jac=False)
+    return 0.5 * (torch.sum(r * r) + torch.sum(ro * ro))
+
+
+def _slab_system(p: BAProblem, r, Jp, Jl):
+    """Full-L landmark blocks: Hll (L,3,3), Hpl (W,L,6,3), gl (L,3)."""
+    W, L = p.poses.shape[0], p.pts.shape[0]
+    z = dict(dtype=r.dtype, device=r.device)
+    Hll = _scatter_add(torch.zeros((L, 3, 3), **z), (p.obs_lm,), torch.einsum("oik,oil->okl", Jl, Jl))
+    Hpl = _scatter_add(
+        torch.zeros((W, L, 6, 3), **z), (p.obs_kf, p.obs_lm), torch.einsum("oik,oil->okl", Jp, Jl)
+    )
+    gl = _scatter_add(torch.zeros((L, 3), **z), (p.obs_lm,), torch.einsum("oik,oi->ok", Jl, r))
+    return Hll, Hpl, gl
+
+
+def _add_odometry(p: BAProblem, Hpp, gp, free):
+    """Fold the odometry chain into the pose blocks (reference
+    src/OptimizationBA.cpp:750-768). Link indices are distinct within each
+    add, so plain indexed adds are exact."""
+    W = p.poses.shape[0]
+    ro, Ji, Jj = _odometry_residual_and_jacobians(p)
+    Ji = Ji * free[:-1][:, None, None]
+    Jj = Jj * free[1:][:, None, None]
+    i = torch.arange(W - 1, device=Hpp.device)
+    j = i + 1
+    Hpp[i, i] += torch.einsum("oik,oil->okl", Ji, Ji)
+    Hpp[j, j] += torch.einsum("oik,oil->okl", Jj, Jj)
+    Hpp[i, j] += torch.einsum("oik,oil->okl", Ji, Jj)
+    Hpp[j, i] += torch.einsum("oik,oil->okl", Jj, Ji)
+    gp[i] += torch.einsum("oik,oi->ok", Ji, ro)
+    gp[j] += torch.einsum("oik,oi->ok", Jj, ro)
+    return Hpp, gp
+
+
+def _pose_system(p: BAProblem, r, Jp, free):
+    """Pose blocks Hpp (W,W,6,6) and gp (W,6), odometry chain included.
+    Observations touch only the diagonal blocks."""
+    W = p.poses.shape[0]
+    z = dict(dtype=r.dtype, device=r.device)
+    diag = _scatter_add(torch.zeros((W, 6, 6), **z), (p.obs_kf,), torch.einsum("oik,oil->okl", Jp, Jp))
+    Hpp = torch.zeros((W, W, 6, 6), **z)
+    a = torch.arange(W, device=r.device)
+    Hpp[a, a] = diag
+    gp = _scatter_add(torch.zeros((W, 6), **z), (p.obs_kf,), torch.einsum("oik,oi->ok", Jp, r))
+    return _add_odometry(p, Hpp, gp, free)
+
+
+def _assemble(p: BAProblem, axis_name: str | None = None):
+    """The blocked normal equations (Hpp, Hll, Hpl, gp, gl)."""
+    _not_ported(axis_name, 1)
+    free = (~p.fixed) & p.pose_valid
+    r, Jp, Jl = _obs_residual_and_jacobians(p)
+    Jp = Jp * free[p.obs_kf][:, None, None]
+    Hll, Hpl, gl = _slab_system(p, r, Jp, Jl)
+    Hpp, gp = _pose_system(p, r, Jp, free)
+    return Hpp, Hll, Hpl, gp, gl
+
+
+def _damped_inv3(Hll, lam):
+    """LM-damped, observedness-guarded batched 3x3 inverse of the landmark
+    blocks; returns (Hll_inv, observed)."""
+    eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
+    tr = torch.diagonal(Hll, dim1=-2, dim2=-1).sum(-1)
+    Hll_d = Hll + lam * eye3[None] * torch.clamp(tr[:, None, None] / 3.0, min=1e-6)
+    observed = tr > 1e-12
+    Hll_d = torch.where(observed[:, None, None], Hll_d, eye3[None])
+    return _inv3(Hll_d), observed
+
+
+def _inv3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched 3x3 inverse (adjugate / determinant)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    co = torch.stack(
+        [
+            e * i - f * h, c * h - b * i, b * f - c * e,
+            f * g - d * i, a * i - c * g, c * d - a * f,
+            d * h - e * g, b * g - a * h, a * e - b * d,
+        ],
+        dim=-1,
+    ).reshape(*A.shape[:-2], 3, 3)
+    det = a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+    return co / det[..., None, None]
+
+
+def _solve_reduced(p: BAProblem, Hpp, gp, S_red, b_red, lam):
+    """Solve the damped reduced camera system S dp = -b with fixed poses
+    frozen. A matrix that is not positive definite gives a NaN step."""
+    W = p.poses.shape[0]
+    dev = Hpp.device
+    eye6 = torch.eye(6, dtype=Hpp.dtype, device=dev)
+    S = Hpp - S_red.reshape(W, 6, W, 6).permute(0, 2, 1, 3)
+    b = gp - b_red
+    free = (~p.fixed) & p.pose_valid
+    a = torch.arange(W, device=dev)
+    diagW = torch.diagonal(S[a, a], dim1=-2, dim2=-1).sum(-1)
+    S[a, a] += lam * eye6[None] * torch.clamp(diagW / 6.0, min=1e-6)[:, None, None]
+    fm = free[:, None] & free[None, :]
+    S = torch.where(fm[:, :, None, None], S, 0.0)
+    S[a, a] += torch.where(~free[:, None, None], eye6, 0.0)
+    b = torch.where(free[:, None], b, 0.0)
+    S_dense = S.permute(0, 2, 1, 3).reshape(6 * W, 6 * W)
+    # upper factor, as jax.scipy.linalg.cho_factor (lower=False)
+    U, info = torch.linalg.cholesky_ex(S_dense, upper=True)
+    x = torch.cholesky_solve(-b.reshape(-1, 1), U, upper=True).reshape(W, 6)
+    return torch.where(info == 0, x, float("nan"))
+
+
+def _schur_solve(p: BAProblem, Hpp, Hll, Hpl, gp, gl, lam, axis_name=None):
+    """Damped Schur-complement step -> (delta_pose (W,6), delta_pt (L,3))."""
+    _not_ported(axis_name, 1)
+    W, L = p.poses.shape[0], p.pts.shape[0]
+    Hll_inv, observed = _damped_inv3(Hll, lam)
+    # S_red = sum_l Hpl_l Hll_l^-1 Hpl_l^T as ONE (6W, 3L) x (3L, 6W) product
+    M = torch.einsum("alij,ljk->alik", Hpl, Hll_inv)
+    M2 = M.permute(0, 2, 1, 3).reshape(6 * W, 3 * L)
+    H2 = Hpl.permute(0, 2, 1, 3).reshape(6 * W, 3 * L)
+    b_red = torch.einsum("alik,lk->ai", M, gl)
+    delta_p = _solve_reduced(p, Hpp, gp, M2 @ H2.T, b_red, lam)
+    rhs = -gl - torch.einsum("alij,ai->lj", Hpl, delta_p)
+    delta_l = torch.einsum("ljk,lk->lj", Hll_inv, rhs)
+    delta_l = torch.where((observed & p.pt_valid)[:, None], delta_l, 0.0)
+    return delta_p, delta_l
+
+
+def local_ba(
+    p: BAProblem, iters: int = 5, lambda0: float = 1e-4, rel_tol: float = 1e-5,
+    axis_name: str | None = None, n_slabs: int = 1, stats: list | None = None,
+):
+    """Up to `iters` LM iterations; returns (problem, final error, final
+    lambda). GTSAM accept/reject with relativeErrorTol: done when an
+    ACCEPTED step gains <= rel_tol * max(err, 1e-12); lambda x0.1 on
+    accept, x10 on reject, clipped to [1e-9, 1e6]. A NaN trial error is a
+    rejection. `stats`, when given, receives the iteration count."""
+    _not_ported(axis_name, n_slabs)
+    err = ba_error(p)
+    dev = err.device
+    lam = torch.tensor(lambda0, dtype=torch.float32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    n_iter = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(iters):
+        if i and i % _DONE_CHECK_EVERY == 0 and bool(done):
+            break
+        Hpp, Hll, Hpl, gp, gl = _assemble(p)
+        dp, dl = _schur_solve(p, Hpp, Hll, Hpl, gp, gl, lam)
+        p_new = p._replace(poses=se3.retract(p.poses, dp), pts=p.pts + dl)
+        new_err = ba_error(p_new)
+        active = ~done
+        improved = (new_err < err) & active  # False on NaN
+        done = done | (improved & (err - new_err <= rel_tol * torch.clamp(err, min=1e-12)))
+        p = p._replace(
+            poses=torch.where(improved, p_new.poses, p.poses),
+            pts=torch.where(improved, p_new.pts, p.pts),
+        )
+        lam_new = torch.clamp(torch.where(improved, lam * 0.1, lam * 10.0), 1e-9, 1e6)
+        lam = torch.where(active, lam_new, lam)
+        err = torch.where(improved, new_err, err)
+        n_iter = n_iter + active.long()
+    if stats is not None:
+        stats.append(int(n_iter))
+    return p, err, lam
+
+
+def local_ba_two_rounds(
+    p: BAProblem, iters1: int = 5, iters2: int = 10,
+    axis_name: str | None = None, n_slabs: int = 1, stats: list | None = None,
+):
+    """The reference's 2-round schedule (src/OptimizationBA.cpp:543-873):
+    round 1 LM -> chi-squared outlier sweep -> round 2 LM (lambda restarts)
+    -> final kill mask. Returns (problem, error, kill (O,) bool)."""
+    _not_ported(axis_name, n_slabs)
+    p1, _, _ = local_ba(p, iters=iters1, stats=stats)
+    p1 = p1._replace(obs_valid=p1.obs_valid & (obs_chi2(p1) < CHI2_THR))
+    p2, err, _ = local_ba(p1, iters=iters2, stats=stats)
+    kill = p2.obs_valid & (obs_chi2(p2) >= CHI2_THR)
+    return p2, err, kill
+
+
+def obs_chi2(p: BAProblem) -> torch.Tensor:
+    """Per-observation chi^2 (unwhitened pixel errors x information) for
+    the outlier sweep; a behind-camera row never classifies as an inlier."""
+    T_cw = se3.inverse(p.poses)[p.obs_kf]
+    pt = p.pts[p.obs_lm]
+    r, _, _ = _project_residual(
+        T_cw, pt, p.obs_uv, p.obs_stereo, p.obs_right, p.K, p.baseline, False
+    )
+    chi2 = torch.sum(r * r, dim=-1) * (p.obs_w**2)
+    z = torch.sum(T_cw[:, 2, :3] * pt, dim=-1) + T_cw[:, 2, 3]
+    return torch.where(z <= 0.05, 1e12, chi2)

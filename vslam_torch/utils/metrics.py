@@ -34,6 +34,10 @@ class StageTimer:
         self._totals[name] += dt
         self._counts[name] += 1
 
+    def samples(self, name: str) -> list[float]:
+        """The stage's latest wall times in seconds, oldest first."""
+        return list(self._samples.get(name, ()))
+
     def summary(self) -> dict:
         out = {}
         for name, buf in self._samples.items():
