@@ -13,11 +13,13 @@ own line:
 3. kernels: each kernel against its plain PyTorch version on the card
    (torch.equal required): extract_windows at every bench level shape, at
    an odd shape and with out-of-range corners, and extract_windows_levels
-   on frame 0's full 8-level table, as the main path calls it. Then the
-   frame's one launch is timed: device time on a primed stream and host
-   time per call (vslam_torch/kernels/timing.py), against the plain
-   version, one advanced-indexing call per level (the library yardstick)
-   and the bound from the bytes the frame must move;
+   on frame 0's full 8-level table, as the main path calls it, for the
+   bench configuration and for the KITTI one (1248x384, 2048 features,
+   seed 5; the synthetic driver's table). Then each table's one launch is
+   timed: device time on a primed stream and host time per call
+   (vslam_torch/kernels/timing.py), against the plain version, one
+   advanced-indexing call per level (the library yardstick) and the bound
+   from the bytes the frame must move;
 4. main path: StereoTracker (no mapper) over 40 frames of the synthetic
    EuRoC-geometry scene at the bench configuration (752x480, seed 3,
    1024 features, 8 levels, 4096 active landmarks) on the card; kernel
@@ -47,7 +49,32 @@ own line:
    triangulation's batched eigh alone;
 8. system card vs CPU: the first 12 frames through the facade on the card
    and on the CPU; the same keyframe slots and BA count, poses within
-   1e-3 m / 1e-3 rad.
+   1e-3 m / 1e-3 rad;
+9. async system: phase 6's scene, capacities and tracker parameters
+   through VSlamSystem(async_ba=True) with deterministic_ba_latency (the
+   BA solved on the mapper's worker thread and side stream): fps beside
+   phase 6's, tracker frame p50/p90, the seconds the main thread was
+   blocked joining the worker and the worker's wall per BA, BA runs,
+   keyframes, landmarks, ATE (must be <= 0.05 m), extract_windows
+   launches (80) and plain calls (0); then the same run again, which must
+   give the same trajectory bit for bit, and one readiness-polled run
+   (deterministic_ba_latency off), which must complete with its ATE <=
+   0.05 m and nothing pending after exit();
+10. async card vs CPU: the first 12 frames through the async facade on
+   the card and on the CPU; the same keyframe slots and BA count, poses
+   within 1e-3 m / 1e-3 rad;
+11. STEREO_IMU: the same 80 frames with slamMode 0, the IMU block of
+   examples/run_synthetic.py, the scene's gravity and initial velocity
+   and its IMU samples binned per frame, with the sync mapper: fps, ATE
+   (must be <= 0.08 m), keyframes, BA runs, extract_windows launches
+   (80), the 15-dof solves per frame and the kernel launches and stream
+   syncs of one solve and of one preintegration (torch.profiler); then 8
+   frames on the card and on the CPU, the same keyframe slots, poses
+   within 1e-3 m / 1e-3 rad;
+12. driver: python -m vslam_torch.run_synthetic --scene kitti at its
+   default 40 frames (1248x384, 2048 features, async BA) on the card: its
+   [result] fields, ATE <= 0.05 m, extract_windows launches (40) and plain
+   calls (0).
 
 The second-to-last line is the kernel report {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Nothing is caught: any failure raises.
@@ -55,6 +82,7 @@ line {"ok": true, "device": {...}}. Nothing is caught: any failure raises.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -63,12 +91,12 @@ import time
 import numpy as np
 import torch
 
-from vslam_torch import kernels
+from vslam_torch import kernels, run_synthetic
 from vslam_torch.geometry import triangulate
 from vslam_torch.kernels import timing
 from vslam_torch.models import local_mapper, map_state, system, tracker
-from vslam_torch.ops import extract, patches, pyramid, schur
-from vslam_torch.utils import synthetic, trajectory
+from vslam_torch.ops import extract, imu, lm, patches, pyramid, schur
+from vslam_torch.utils import datasets, synthetic, trajectory
 from vslam_torch.utils.config import ConfigFile
 
 # the bench configuration (bench.py:341-345) and its scene
@@ -83,6 +111,10 @@ POSE_TOL_M, POSE_TOL_RAD = 1e-3, 1e-3
 SYS_FRAMES, SYS_CPU_FRAMES = 80, 12
 SYS_CAPS = dict(lm_capacity=1 << 15, kf_capacity=128)
 BA_TOL_M, BA_TOL_RAD, CHI2_BAND = 1e-4, 1e-4, 1e-3
+# the STEREO_IMU phase: tests/test_system.py:229's gate, 8 frames card vs CPU
+IMU_ATE_GATE_M, IMU_CPU_FRAMES = 0.08, 8
+# the synthetic driver's KITTI scene (vslam_torch/run_synthetic.py)
+KITTI_W, KITTI_H, KITTI_SEED, KITTI_FEATURES, KITTI_FRAMES = 1248, 384, 5, 2048, 40
 
 
 def say(phase: str, **fields):
@@ -107,14 +139,15 @@ def phase_build():
     say("build", library=str(path.relative_to(path.parents[3])), nvcc_seconds=round(seconds, 3))
 
 
-def _level_inputs(scene, dev):
+def _level_inputs(scene, dev, height=HEIGHT, width=WIDTH, n_features=PARAMS["n_features"],
+                  seed=SEED):
     """The main path's inputs to extract_windows for frame 0: every level's
     blurred L+R image, the level quota of keys, corners from a seeded
     generator including the extreme corners."""
     imgs = torch.from_numpy(np.stack([scene.render(0), scene.render(0, right=True)])).to(dev)
-    shapes = pyramid.level_shapes(HEIGHT, WIDTH, PARAMS["n_levels"], 1.2)
-    quotas = extract.level_quotas(PARAMS["n_features"], PARAMS["n_levels"], 1.2)
-    rng = np.random.default_rng(SEED)
+    shapes = pyramid.level_shapes(height, width, PARAMS["n_levels"], 1.2)
+    quotas = extract.level_quotas(n_features, PARAMS["n_levels"], 1.2)
+    rng = np.random.default_rng(seed)
     cur, cases = imgs, []
     for lvl, ((h, w), q) in enumerate(zip(shapes, quotas)):
         if lvl:
@@ -146,16 +179,7 @@ def phase_kernels(scene, dev, smi) -> dict:
     y0 = torch.from_numpy(rng.integers(0, HEIGHT - 11 + 1, size=(2, 37)).astype(np.int32)).to(dev)
     x0[:, 0], y0[:, 0] = WIDTH - 21, HEIGHT - 11
     odd = ("odd 480x752 q=37 11x21", img, x0, y0, 11, 21)
-
-    max_err = 0.0
-
-    def agree(name, out, ref):
-        nonlocal max_err
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"extract_windows != plain version at {name}")
-        max_err = max(max_err, float((out - ref).abs().max()))
-
+    agree, errs = _agreement()
     for name, img, x0, y0, P, Pw in cases + [odd]:
         agree(name, patches.extract_windows(img, x0, y0, P, Pw),
               patches.extract_windows_ref(img, x0, y0, P, Pw))
@@ -163,8 +187,38 @@ def phase_kernels(scene, dev, smi) -> dict:
         agree(name + " clamped", patches.extract_windows(img, xb, yb, P, Pw),
               patches.extract_windows_ref(img, xb, yb, P, Pw))
         say("kernel", name="extract_windows", shape=name, equal=True, clamped_equal=True)
+    t = _table(cases, agree, smi, "frame 0, 8 levels, L+R, one launch")
+    return {"max_abs_err": max(errs), **t}
 
-    # frame 0's full table, as extract_batch calls it: one launch
+
+def phase_kernels_kitti(dev, smi) -> dict:
+    """extract_windows_levels on frame 0's table of the driver's KITTI scene."""
+    scene = synthetic.make_scene(n_frames=1, n_points=900, width=KITTI_W, height=KITTI_H,
+                                 fps=10.0, seed=KITTI_SEED)
+    cases = _level_inputs(scene, dev, KITTI_H, KITTI_W, KITTI_FEATURES, KITTI_SEED)
+    agree, errs = _agreement()
+    t = _table(cases, agree, smi, f"KITTI {KITTI_W}x{KITTI_H}, {KITTI_FEATURES} keys, frame 0, "
+                                  "8 levels, L+R, one launch")
+    return {"max_abs_err": max(errs), **t}
+
+
+def _agreement():
+    """A check that a kernel's output is torch.equal to its plain version,
+    and the list of the max abs errors it has seen."""
+    errs = [0.0]
+
+    def agree(name, out, ref):
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"extract_windows != plain version at {name}")
+        errs.append(float((out - ref).abs().max()))
+
+    return agree, errs
+
+
+def _table(cases, agree, smi, shape) -> dict:
+    """Frame 0's full table, as extract_batch calls it (one launch): held
+    to the plain version (also with out-of-range corners), then timed."""
     P = PATCH
     levels = [c[1] for c in cases]
     counts = [c[2].shape[1] for c in cases]
@@ -200,9 +254,9 @@ def phase_kernels(scene, dev, smi) -> dict:
         "library_ms": timing.primed_device_ms(library, reps=8),
         "bound_ms": bound_ms,
     }
-    say("kernel", name="extract_windows", shape="frame 0, 8 levels, L+R, one launch",
-        card=smi, frame_bytes=frame_bytes, covered_pixels=covered, **t)
-    return {"max_abs_err": max_err, **t}
+    say("kernel", name="extract_windows", shape=shape, card=smi, frame_bytes=frame_bytes,
+        covered_pixels=covered, equal=True, clamped_equal=True, **t)
+    return t
 
 
 def _run_tracker(scene, frames, device):
@@ -226,28 +280,14 @@ def phase_main_path(scene) -> tuple[int, list, float]:
     frames = [torch.from_numpy(p).to(dev) for p in pairs]
     torch.cuda.synchronize()
 
-    # count every call of the plain versions during the run: on the card the
-    # main path must never reach them
-    plain = {n: getattr(patches, n) for n in ("extract_windows_ref", "extract_windows_levels_ref")}
-    plain_devices = []
-
-    def counted(fn):
-        def run(*args):
-            plain_devices.append(args[2].device.type)  # the corners
-            return fn(*args)
-        return run
-
     torch.cuda.reset_peak_memory_stats()
-    for n, fn in plain.items():
-        setattr(patches, n, counted(fn))
-    patches.LAUNCHES = 0
-    t0 = time.perf_counter()
-    trk, poses = _run_tracker(scene, frames, dev)
-    torch.cuda.synchronize()
-    track_s = time.perf_counter() - t0
-    launches, plain_calls = patches.LAUNCHES, len(plain_devices)
-    for n, fn in plain.items():
-        setattr(patches, n, fn)
+    with _plain_calls() as plain_devices:
+        patches.LAUNCHES = 0
+        t0 = time.perf_counter()
+        trk, poses = _run_tracker(scene, frames, dev)
+        torch.cuda.synchronize()
+        track_s = time.perf_counter() - t0
+        launches, plain_calls = patches.LAUNCHES, len(plain_devices)
 
     want = N_FRAMES  # one launch per stereo frame, every level
     if launches != want:
@@ -296,44 +336,69 @@ def phase_card_vs_cpu(scene, pairs):
         raise AssertionError(f"card and CPU poses differ: {dt.max()} m, {ang.max()} rad")
 
 
-def _system(scene, device):
+def _system(scene, device, async_ba=False, imu=False):
     """The facade at the bench configuration, from a config in the
-    reference's schema (a rectified rig matching the scene)."""
+    reference's schema (a rectified rig matching the scene). `async_ba`:
+    the async mapper with deterministic_ba_latency. `imu`: STEREO_IMU with
+    the IMU block of examples/run_synthetic.py, the scene's gravity and its
+    initial velocity."""
     K = scene.K
     cam = {"fx": float(K[0, 0]), "fy": float(K[1, 1]), "cx": float(K[0, 2]), "cy": float(K[1, 2])}
-    conf = ConfigFile.from_dict({
-        "rectified": True, "slamMode": 1, "Camera_l": dict(cam), "Camera_r": dict(cam),
+    cfg = {
+        "rectified": True, "slamMode": 0 if imu else 1, "Camera_l": dict(cam), "Camera_r": dict(cam),
         "Camera": {"width": WIDTH, "height": HEIGHT, "fps": 20.0, "bl": float(scene.baseline)},
         "FE": {"nFeatures": PARAMS["n_features"], "nLevels": PARAMS["n_levels"], "imScale": 1.2},
-    })
-    return system.VSlamSystem(
-        conf, **SYS_CAPS, tracker_params=tracker.TrackerParams(**PARAMS), device=device
+    }
+    if imu:
+        cfg["IMU"] = run_synthetic.config(WIDTH, HEIGHT, 20.0, PARAMS["n_features"], 0)["IMU"]
+    sys_ = system.VSlamSystem(
+        ConfigFile.from_dict(cfg), async_ba=async_ba, **SYS_CAPS,
+        tracker_params=tracker.TrackerParams(**PARAMS), device=device,
     )
+    sys_.deterministic_ba_latency = True
+    if imu:
+        sys_.tracker.set_gravity(synthetic.GRAVITY_W.astype(np.float32))
+        sys_.tracker.velocity = scene.velocities[0].astype(np.float32)
+    return sys_
 
 
-def _run_system(sys_, frames):
-    for fr in frames:
-        sys_.track_stereo(fr[0], fr[1])
+def _run_system(sys_, frames, imu_bins=None):
+    for f, fr in enumerate(frames):
+        sys_.track_stereo(fr[0], fr[1], imu=None if imu_bins is None else imu_bins[f])
     sys_.exit()
     return sys_.trajectory()
 
 
-def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system.VSlamSystem]:
+@contextlib.contextmanager
+def _plain_calls():
+    """Count every call of the window gather's plain versions (the device
+    of the corners each got) while the block runs: on the card the main
+    path must never reach them."""
+    plain = {n: getattr(patches, n) for n in ("extract_windows_ref", "extract_windows_levels_ref")}
+    devices = []
+
+    def counted(fn):
+        def run(*args):
+            devices.append(args[2].device.type)
+            return fn(*args)
+        return run
+
+    for n, fn in plain.items():
+        setattr(patches, n, counted(fn))
+    try:
+        yield devices
+    finally:
+        for n, fn in plain.items():
+            setattr(patches, n, fn)
+
+
+def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system.VSlamSystem, float]:
     t0 = time.perf_counter()
     pairs = [np.stack([scene.render(f), scene.render(f, right=True)]) for f in range(SYS_FRAMES)]
     render_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     frames = [torch.from_numpy(p).to(dev) for p in pairs]
     torch.cuda.synchronize()
-    plain = {n: getattr(patches, n) for n in ("extract_windows_ref", "extract_windows_levels_ref")}
-    plain_devices = []
-
-    def counted(fn):
-        def run(*args):
-            plain_devices.append(args[2].device.type)
-            return fn(*args)
-        return run
-
     # keep the last window the mapper solved (phase 7 solves it again)
     solve = local_mapper.schur.local_ba_two_rounds
     windows = []
@@ -344,20 +409,17 @@ def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system
 
     sys_ = _system(scene, dev)
     torch.cuda.reset_peak_memory_stats()
-    for n, fn in plain.items():
-        setattr(patches, n, counted(fn))
     local_mapper.schur.local_ba_two_rounds = recording
-    patches.LAUNCHES = 0
-    t0 = time.perf_counter()
     try:
-        poses = _run_system(sys_, frames)
-        torch.cuda.synchronize()
+        with _plain_calls() as plain_devices:
+            patches.LAUNCHES = 0
+            t0 = time.perf_counter()
+            poses = _run_system(sys_, frames)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches, plain_calls = patches.LAUNCHES, len(plain_devices)
     finally:
         local_mapper.schur.local_ba_two_rounds = solve
-        for n, fn in plain.items():
-            setattr(patches, n, fn)
-    run_s = time.perf_counter() - t0
-    launches, plain_calls = patches.LAUNCHES, len(plain_devices)
 
     if launches != SYS_FRAMES:
         raise AssertionError(f"extract_windows launched {launches} times, want {SYS_FRAMES}")
@@ -389,7 +451,7 @@ def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system
         raise AssertionError(f"system ATE {ate} m > {ATE_GATE_M} m")
     if not np.array_equal(poses, repeat):
         raise AssertionError("a second system run on the card gave another trajectory")
-    return launches, pairs, windows[-1], sys_
+    return launches, pairs, windows[-1], sys_, SYS_FRAMES / run_s
 
 
 def _solve(p: schur.BAProblem, stats=None):
@@ -489,21 +551,155 @@ def phase_ba(p: schur.BAProblem, sys_: system.VSlamSystem):
     return prof
 
 
-def phase_system_card_vs_cpu(scene, pairs):
-    sub = pairs[:SYS_CPU_FRAMES]
-    g = _system(scene, "cuda")
-    pg = _run_system(g, [torch.from_numpy(p).cuda() for p in sub])
-    c = _system(scene, "cpu")
-    pc = _run_system(c, [torch.from_numpy(p) for p in sub])
+def phase_system_card_vs_cpu(scene, pairs, phase="system_card_vs_cpu", n=SYS_CPU_FRAMES,
+                             imu_bins=None, **kw):
+    """The facade (`kw` as for _system) over the first `n` frames on the
+    card and on the CPU: the same keyframes and BA runs, poses within
+    POSE_TOL."""
+    sub = pairs[:n]
+    g = _system(scene, "cuda", **kw)
+    pg = _run_system(g, [torch.from_numpy(p).cuda() for p in sub], imu_bins)
+    c = _system(scene, "cpu", **kw)
+    pc = _run_system(c, [torch.from_numpy(p) for p in sub], imu_bins)
     if g.tracker.new_kf_slots != c.tracker.new_kf_slots or g.mapper.ba_count != c.mapper.ba_count:
         raise AssertionError(
-            f"keyframes/BA differ: card {g.tracker.new_kf_slots} {g.mapper.ba_count}, "
+            f"{phase}: keyframes/BA differ: card {g.tracker.new_kf_slots} {g.mapper.ba_count}, "
             f"cpu {c.tracker.new_kf_slots} {c.mapper.ba_count}")
     dt, ang = _pose_diff(pg, pc)
-    say("system_card_vs_cpu", frames=SYS_CPU_FRAMES, keyframes=g.tracker.new_kf_slots,
-        ba_runs=g.mapper.ba_count, max_dt_m=float(dt.max()), max_drot_rad=float(ang.max()))
+    say(phase, frames=n, keyframes=g.tracker.new_kf_slots, ba_runs=g.mapper.ba_count,
+        max_dt_m=float(dt.max()), max_drot_rad=float(ang.max()))
     if dt.max() > POSE_TOL_M or ang.max() > POSE_TOL_RAD:
-        raise AssertionError(f"card and CPU system poses differ: {dt.max()} m, {ang.max()} rad")
+        raise AssertionError(f"{phase}: card and CPU poses differ: {dt.max()} m, {ang.max()} rad")
+
+
+def _stage(pairs):
+    frames = [torch.from_numpy(p).to("cuda") for p in pairs]
+    torch.cuda.synchronize()
+    return frames
+
+
+def phase_async(scene, pairs, sync_fps) -> int:
+    frames = _stage(pairs)
+    sys_ = _system(scene, "cuda", async_ba=True)
+    torch.cuda.reset_peak_memory_stats()
+    with _plain_calls() as plain_devices:
+        patches.LAUNCHES = 0
+        t0 = time.perf_counter()
+        poses = _run_system(sys_, frames)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = patches.LAUNCHES
+    if launches != SYS_FRAMES:
+        raise AssertionError(f"extract_windows launched {launches} times, want {SYS_FRAMES}")
+    if plain_devices:
+        raise AssertionError(f"the plain window gather ran {len(plain_devices)} times")
+    if poses.shape != (SYS_FRAMES, 4, 4) or not np.isfinite(poses).all():
+        raise AssertionError(f"bad trajectory {poses.shape}")
+    gt = scene.poses_c2w[:SYS_FRAMES]
+    ate = trajectory.ate_rmse(poses, gt, align=False)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    repeat = _run_system(_system(scene, "cuda", async_ba=True), frames)
+    # readiness-polled consumes: the trajectory may depend on thread timing
+    polled = _system(scene, "cuda", async_ba=True)
+    polled.deterministic_ba_latency = False
+    t0 = time.perf_counter()
+    p_poses = _run_system(polled, frames)
+    torch.cuda.synchronize()
+    polled_s = time.perf_counter() - t0
+    p_ate = trajectory.ate_rmse(p_poses, gt, align=False)
+    m, trk = sys_.mapper.metrics.summary(), sys_.tracker.metrics.summary()
+    c = sys_.mapper.counters
+    say("async_system", frames=SYS_FRAMES, fps=SYS_FRAMES / run_s, sync_fps_phase6=sync_fps,
+        run_s=run_s, frame_p50_ms=trk["track"]["p50_ms"], frame_p90_ms=trk["track"]["p90_ms"],
+        join_blocked_s=m["ba_join"]["total_s"], join_p50_ms=m["ba_join"]["p50_ms"],
+        join_p90_ms=m["ba_join"]["p90_ms"], worker_wall_p50_ms=m["ba_worker"]["p50_ms"],
+        worker_wall_p90_ms=m["ba_worker"]["p90_ms"], worker_wall_total_s=m["ba_worker"]["total_s"],
+        ba_runs=sys_.mapper.ba_count, lm_iters_round1=c.get("lm_iters_round1"),
+        lm_iters_round2=c.get("lm_iters_round2"), keyframes=len(sys_.tracker.new_kf_slots),
+        landmarks=sys_.world.n_landmarks, ate_m=ate, extract_windows_launches=launches,
+        plain_calls_on_card=len(plain_devices), peak_mem_mb=peak_mb,
+        repeat_bit_identical=bool(np.array_equal(poses, repeat)),
+        polled_fps=SYS_FRAMES / polled_s, polled_ate_m=p_ate, polled_ba_runs=polled.mapper.ba_count,
+        polled_pending_after_exit=polled._pending_ba is not None)
+    if not ate <= ATE_GATE_M:
+        raise AssertionError(f"async system ATE {ate} m > {ATE_GATE_M} m")
+    if not np.array_equal(poses, repeat):
+        raise AssertionError("a second async system run on the card gave another trajectory")
+    if not p_ate <= ATE_GATE_M or polled._pending_ba is not None:
+        raise AssertionError(f"readiness-polled run: ATE {p_ate} m, pending {polled._pending_ba}")
+    return launches
+
+
+def phase_imu(scene, pairs, bins) -> int:
+    """STEREO_IMU with the sync mapper over the 80 frames, then the 15-dof
+    solve and the preintegration alone (the last of each the run made)."""
+    frames = _stage(pairs)
+    sys_ = _system(scene, "cuda", imu=True)
+    last, n_calls = {}, {"motion_only_ba_imu": 0, "preintegrate": 0}
+
+    def recording(mod, name):
+        fn = getattr(mod, name)
+
+        def run(*args, **kwargs):
+            last[name] = (fn, args, kwargs)
+            n_calls[name] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    originals = [(lm, "motion_only_ba_imu"), (imu, "preintegrate")]
+    saved = [getattr(mod, name) for mod, name in originals]
+    for mod, name in originals:
+        setattr(mod, name, recording(mod, name))
+    try:
+        with _plain_calls() as plain_devices:
+            patches.LAUNCHES = 0
+            t0 = time.perf_counter()
+            poses = _run_system(sys_, frames, bins)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = patches.LAUNCHES
+    finally:
+        for (mod, name), fn in zip(originals, saved):
+            setattr(mod, name, fn)
+    if launches != SYS_FRAMES or plain_devices:
+        raise AssertionError(f"extract_windows launched {launches} times, plain {len(plain_devices)}")
+    if poses.shape != (SYS_FRAMES, 4, 4) or not np.isfinite(poses).all():
+        raise AssertionError(f"bad trajectory {poses.shape}")
+    ate = trajectory.ate_rmse(poses, scene.poses_c2w[:SYS_FRAMES], align=False)
+    prof = {}
+    for name, (fn, args, kwargs) in last.items():
+        prof[name] = _profile_counts(lambda: (fn(*args, **kwargs), torch.cuda.synchronize()))
+    tracked = SYS_FRAMES - 1
+    per_frame = n_calls["motion_only_ba_imu"] / tracked
+    trk = sys_.tracker.metrics.summary()
+    say("stereo_imu", frames=SYS_FRAMES, fps=SYS_FRAMES / run_s, run_s=run_s,
+        frame_p50_ms=trk["track"]["p50_ms"], frame_p90_ms=trk["track"]["p90_ms"], ate_m=ate,
+        keyframes=len(sys_.tracker.new_kf_slots), ba_runs=sys_.mapper.ba_count,
+        landmarks=sys_.world.n_landmarks, extract_windows_launches=launches,
+        plain_calls_on_card=len(plain_devices), imu_solves_per_frame=per_frame,
+        imu_solve=prof["motion_only_ba_imu"],
+        imu_solve_launches_per_frame=per_frame * prof["motion_only_ba_imu"]["kernel_launches"],
+        imu_solve_syncs_per_frame=per_frame * prof["motion_only_ba_imu"]["stream_syncs"],
+        preintegrate=prof["preintegrate"], preintegrate_rows=len(last["preintegrate"][1][0]))
+    if not ate <= IMU_ATE_GATE_M:
+        raise AssertionError(f"STEREO_IMU ATE {ate} m > {IMU_ATE_GATE_M} m")
+    phase_system_card_vs_cpu(scene, pairs, "stereo_imu_card_vs_cpu", IMU_CPU_FRAMES, bins, imu=True)
+    return launches
+
+
+def phase_driver() -> int:
+    with _plain_calls() as plain_devices:
+        patches.LAUNCHES = 0
+        r = run_synthetic.main(["--scene", "kitti"])
+        torch.cuda.synchronize()
+        launches = patches.LAUNCHES
+    say("driver", **r, extract_windows_launches=launches, plain_calls_on_card=len(plain_devices))
+    if r["frames"] != KITTI_FRAMES or launches != KITTI_FRAMES or plain_devices:
+        raise AssertionError(f"driver: {r['frames']} frames, {launches} launches, "
+                             f"{len(plain_devices)} plain calls")
+    if not r["ate_m"] <= ATE_GATE_M:
+        raise AssertionError(f"driver KITTI ATE {r['ate_m']} m > {ATE_GATE_M} m")
+    return launches
 
 
 def main() -> int:
@@ -512,20 +708,29 @@ def main() -> int:
     scene = synthetic.make_scene(n_frames=N_FRAMES, n_points=900, width=WIDTH, height=HEIGHT,
                                  fps=20.0, seed=SEED)
     t = phase_kernels(scene, torch.device("cuda"), smi)
+    t_kitti = phase_kernels_kitti(torch.device("cuda"), smi)
     launches_trk, pairs, ate_trk = phase_main_path(scene)
     phase_card_vs_cpu(scene, pairs)
     sys_scene = synthetic.make_scene(n_frames=SYS_FRAMES, n_points=900, width=WIDTH,
                                      height=HEIGHT, fps=20.0, seed=SEED)
-    launches, sys_pairs, window, sys_ = phase_system(sys_scene, ate_trk)
+    launches, sys_pairs, window, sys_, sync_fps = phase_system(sys_scene, ate_trk)
     phase_ba(window, sys_)
+    del sys_, window
     phase_system_card_vs_cpu(sys_scene, sys_pairs)
+    launches_async = phase_async(sys_scene, sys_pairs, sync_fps)
+    phase_system_card_vs_cpu(sys_scene, sys_pairs, "async_card_vs_cpu", async_ba=True)
+    bins = datasets.bin_imu_per_frame(sys_scene.imu, sys_scene.times)
+    launches_imu = phase_imu(sys_scene, sys_pairs, bins)
+    launches_kitti = phase_driver()
     report = {"kernels": [{
         "name": "extract_windows",
         "route": "cuda",
         "source": "vslam_torch/kernels/csrc/extract_windows.cu",
         "replaces": "vslam_tpu/ops/patches.py:141",
         "launches": launches,
-        "launches_by_phase": {"tracker": launches_trk, "system": launches},
+        "launches_by_phase": {"tracker": launches_trk, "system": launches,
+                              "async_system": launches_async, "stereo_imu": launches_imu,
+                              "kitti_driver": launches_kitti},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],
@@ -535,6 +740,9 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": "bytes",
         "library_ms": t["library_ms"],
+        "kitti_table": {k: t_kitti[k] for k in (
+            "max_abs_err", "launches_per_frame", "device_ms", "host_ms_per_call", "plain_ms",
+            "bound_ms", "library_ms")},
     }]}
     print(smi)
     print(json.dumps(report))

@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA device: the hand-written kernels
 against their plain PyTorch versions, a short tracker run and a short
-VSlamSystem run on the card against the same runs on the CPU, and the
-local BA's bit-reproducibility on the card. They skip without a card. This file
+VSlamSystem run on the card against the same runs on the CPU, the local
+BA's bit-reproducibility on the card, the async mapper's worker thread and
+side stream against the sync mapper, and a short STEREO_IMU run. They skip
+without a card. This file
 imports no jax (the GPU machine has none); run it there with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -210,17 +212,22 @@ def test_local_ba_on_card_matches_cpu(dev):
     assert torch.equal(g[2].cpu(), c[2])
 
 
+def _small_system_conf(slam_mode: int = 1) -> ConfigFile:
+    cam = {"fx": 460.0, "fy": 460.0, "cx": 160.0, "cy": 120.0}
+    return ConfigFile.from_dict({
+        "rectified": True, "slamMode": slam_mode, "Camera_l": cam, "Camera_r": cam,
+        "Camera": {"width": 320, "height": 240, "fps": 10.0, "bl": 0.12},
+        "FE": {"nFeatures": 512, "nLevels": 4, "imScale": 1.2},
+        "IMU": {"Hz": 200, "gravity": [0.0, 0.0, -9.81]},
+    })
+
+
 def test_system_on_card_matches_cpu(dev):
     """Twelve frames of the small system scene through VSlamSystem on the
     card and on the CPU: the same keyframes and local-BA runs, one
     extract_windows launch per frame, poses within 1e-3."""
     scene = synthetic.make_scene(n_frames=12, n_points=400, width=320, height=240, fps=10.0, seed=7)
-    cam = {"fx": 460.0, "fy": 460.0, "cx": 160.0, "cy": 120.0}
-    conf = ConfigFile.from_dict({
-        "rectified": True, "slamMode": 1, "Camera_l": cam, "Camera_r": cam,
-        "Camera": {"width": 320, "height": 240, "fps": 10.0, "bl": 0.12},
-        "FE": {"nFeatures": 512, "nLevels": 4, "imScale": 1.2},
-    })
+    conf = _small_system_conf()
     params = tracker.TrackerParams(n_features=512, n_levels=4, active_size=1024, kf_min_stereo=60)
     runs = {}
     for d in (dev, torch.device("cpu")):
@@ -234,4 +241,52 @@ def test_system_on_card_matches_cpu(dev):
     assert launches == 12
     assert sg.tracker.new_kf_slots == sc.tracker.new_kf_slots
     assert sg.mapper.ba_count == sc.mapper.ba_count >= 2
+    np.testing.assert_allclose(pg, pc, atol=1e-3, rtol=0)
+
+
+def test_async_worker_on_card_matches_sync_mapper(dev):
+    """The async facade with a zero consume latency on the card: the BA is
+    solved on the worker thread's side stream behind phase A's event and
+    written back after the join, before the next tracked frame, as the
+    sync mapper does; the keyframe poses are the sync run's bit for bit."""
+    scene = synthetic.make_scene(n_frames=12, n_points=400, width=320, height=240, fps=10.0, seed=7)
+    params = tracker.TrackerParams(n_features=512, n_levels=4, active_size=1024, kf_min_stereo=60)
+    runs = []
+    for async_ba in (False, True):
+        sys_ = system.VSlamSystem(_small_system_conf(), async_ba=async_ba, lm_capacity=8192,
+                                  kf_capacity=64, tracker_params=params, device=dev)
+        sys_.ba_latency_frames = 0
+        sys_.deterministic_ba_latency = True
+        for f in range(12):
+            sys_.track_stereo(scene.render(f), scene.render(f, right=True))
+        sys_.exit()
+        runs.append((sys_, sys_.trajectory()))
+    (ss, ps), (sa, pa) = runs
+    assert sa.mapper.ba_count == ss.mapper.ba_count >= 2
+    assert sa.tracker.new_kf_slots == ss.tracker.new_kf_slots
+    assert sa._pending_ba is None and sa.mapper._side is not None
+    np.testing.assert_array_equal(sa.world.kf_poses_host, ss.world.kf_poses_host)
+    np.testing.assert_allclose(pa, ps, atol=1e-6, rtol=0)
+
+
+def test_stereo_imu_on_card_matches_cpu(dev):
+    """Eight STEREO_IMU frames (the scene's gravity and initial velocity,
+    IMU rows per frame) on the card and on the CPU: the same keyframes,
+    poses within 1e-3."""
+    from vslam_torch.utils import datasets
+
+    scene = synthetic.make_scene(n_frames=8, n_points=400, width=320, height=240, fps=10.0, seed=7)
+    bins = datasets.bin_imu_per_frame(scene.imu, scene.times)
+    params = tracker.TrackerParams(n_features=512, n_levels=4, active_size=1024, kf_min_stereo=60)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        sys_ = system.VSlamSystem(_small_system_conf(0), lm_capacity=8192, kf_capacity=64,
+                                  tracker_params=params, device=d)
+        sys_.tracker.velocity = scene.velocities[0].astype(np.float32)
+        for f in range(8):
+            sys_.track_stereo(scene.render(f), scene.render(f, right=True), imu=bins[f])
+        sys_.exit()
+        runs[d.type] = (sys_, sys_.trajectory())
+    (sg, pg), (sc, pc) = runs["cuda"], runs["cpu"]
+    assert sg.tracker.imu_cfg is not None and sg.tracker.new_kf_slots == sc.tracker.new_kf_slots
     np.testing.assert_allclose(pg, pc, atol=1e-3, rtol=0)

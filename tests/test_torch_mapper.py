@@ -438,11 +438,18 @@ def test_trajectory_io_matches_jax(tmp_path, scene):
 
 
 def test_unported_paths_raise(runs, tmp_path):
+    """MONOCULAR (sync or async), shards and loop closure at construction;
+    global BA; mono triangulation on every mapper entry (sync, staged and
+    async); the driver's mono and loop scenes; a mesh, observation-row
+    sharding and slabs in the BA."""
+    from vslam_torch import run_synthetic
+
     conf = TConfig.from_dict(_config())
     params = ttr.TrackerParams(**PARAMS)
     for kw, what in (
-        ({"mode": tsys.SlamMode.STEREO_IMU}, "A9"), ({"mode": tsys.SlamMode.MONOCULAR}, "A9"),
-        ({"async_ba": True}, "async"), ({"shards": 2}, "A12"), ({"loop_closure": True}, "A10"),
+        ({"mode": tsys.SlamMode.MONOCULAR}, "A9"),
+        ({"mode": tsys.SlamMode.MONOCULAR, "async_ba": True}, "A9"),
+        ({"shards": 2}, "A12"), ({"shards": "auto"}, "A12"), ({"loop_closure": True}, "A10"),
     ):
         with pytest.raises(NotImplementedError, match=what):
             tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu", **kw)
@@ -454,9 +461,13 @@ def test_unported_paths_raise(runs, tmp_path):
         m.find_new_points(1, mono=True)
     with pytest.raises(NotImplementedError, match="A11"):
         m.run_global()
-    for call in (lambda: m.run_async(1), lambda: m.run_async_staged(1), lambda: m.advance({}),
-                 lambda: m.prefetch({}), lambda: m.consume_triangulation({})):
-        with pytest.raises(NotImplementedError, match="async"):
+    for call, what in (
+        (lambda: m.run(1, mono=True), "A9"), (lambda: m.run_async(1, mono=True), "A9"),
+        (lambda: m.run_async_staged(1, mono=True), "A9"),
+        (lambda: run_synthetic.main(["--device", "cpu", "--scene", "mono"]), "A9"),
+        (lambda: run_synthetic.main(["--device", "cpu", "--scene", "loop"]), "A10"),
+    ):
+        with pytest.raises(NotImplementedError, match=what):
             call()
     with pytest.raises(NotImplementedError, match="A12"):
         tlm.LocalMapper(ts.world, np.eye(3), BL, mesh=object())
@@ -472,8 +483,10 @@ def test_unported_paths_raise(runs, tmp_path):
 
 
 def test_facade_never_imports_jax():
-    """``vslam_torch.models.system`` plus an 8-frame CPU run with its local
-    mapper, in a fresh interpreter where importing jax fails loudly."""
+    """``vslam_torch.models.system`` and ``vslam_torch.run_synthetic``, an
+    8-frame CPU run with the sync local mapper, 8 frames with the async
+    one and 4 STEREO_IMU frames, in a fresh interpreter where importing
+    jax fails loudly."""
     code = textwrap.dedent(
         """
         import importlib.abc, sys
@@ -486,23 +499,35 @@ def test_facade_never_imports_jax():
         sys.meta_path.insert(0, _NoJax())
         import numpy as np, torch
         torch.set_num_threads(1)
+        from vslam_torch import run_synthetic  # noqa: F401
         from vslam_torch.models import system, tracker
-        from vslam_torch.utils import synthetic
+        from vslam_torch.utils import datasets, synthetic
         from vslam_torch.utils.config import ConfigFile
 
         s = synthetic.make_scene(n_frames=8, n_points=300, width=160, height=120, fps=10.0, seed=3)
         cam = {"fx": 460.0, "fy": 460.0, "cx": 80.0, "cy": 60.0}
-        conf = ConfigFile.from_dict({"slamMode": 1, "Camera_l": cam, "Camera_r": cam,
-            "Camera": {"width": 160, "height": 120, "fps": 10.0, "bl": 0.12}})
+        rig = {"Camera_l": cam, "Camera_r": cam,
+               "Camera": {"width": 160, "height": 120, "fps": 10.0, "bl": 0.12}}
+        bins = datasets.bin_imu_per_frame(s.imu, s.times)
         # n_features >= the mapper's SPAWN_TRI budget (512), as in vslam_tpu
         p = tracker.TrackerParams(n_features=512, n_levels=2, active_size=1024, spawn_per_kf=128, kf_every=2)
-        sys_ = system.VSlamSystem(conf, lm_capacity=2048, kf_capacity=16, tracker_params=p, device="cpu")
-        for f in range(8):
-            sys_.track_stereo(s.render(f), s.render(f, right=True))
-        sys_.exit()
-        assert sys_.trajectory().shape == (8, 4, 4) and sys_.mapper.ba_count >= 1
+        counts = []
+        for mode, async_ba, n in ((1, False, 8), (1, True, 8), (0, False, 4)):
+            conf = ConfigFile.from_dict({"slamMode": mode, **rig})
+            sys_ = system.VSlamSystem(conf, async_ba=async_ba, lm_capacity=2048, kf_capacity=16,
+                                      tracker_params=p, device="cpu")
+            if mode == 0:
+                sys_._gravity_set = True
+                sys_.tracker.set_gravity(synthetic.GRAVITY_W)
+                sys_.tracker.velocity = s.velocities[0].astype(np.float32)
+            for f in range(n):
+                sys_.track_stereo(s.render(f), s.render(f, right=True), imu=bins[f])
+            sys_.exit()
+            assert sys_.trajectory().shape == (n, 4, 4) and sys_._pending_ba is None
+            counts.append(sys_.mapper.ba_count)
+        assert counts[0] >= 1 and counts[1] >= 1
         assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-        print("NO_JAX_OK", sys_.mapper.ba_count)
+        print("NO_JAX_OK", counts)
         """
     )
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -206,14 +206,22 @@ def test_world_map_allocator_matches_jax():
 
 
 def test_unported_paths_raise(scene):
-    with pytest.raises(NotImplementedError, match="IMU"):
-        ttr.StereoTracker(
-            scene.K, scene.baseline, 320, 240, tms.WorldMap(**WORLD, device="cpu"),
-            imu_cfg=object(), device="cpu",
-        )
+    """Monocular tracking (with and without IMU rows, on a stereo-inertial
+    tracker too), relocalization and the debug hook raise; a tracker on
+    another device than its map is refused."""
+    imu_cfg = ttr.ImuConfig(
+        gyro_noise=1.7e-4, accel_noise=2e-3, gyro_walk=1.9e-5, accel_walk=3e-3, hz=200.0,
+        T_bc=np.eye(4, dtype=np.float32), gravity_w=np.array([0.0, 0.0, -9.81], np.float32),
+    )
+    ti = ttr.StereoTracker(
+        scene.K, scene.baseline, 320, 240, tms.WorldMap(**WORLD, device="cpu"),
+        ttr.TrackerParams(**PARAMS), imu_cfg=imu_cfg, device="cpu",
+    )
+    with pytest.raises(NotImplementedError, match="monocular"):
+        ti.track(scene.frames[0][0], imu=np.zeros((3, 7), np.float32))
     tt = _torch_tracker(scene)
-    with pytest.raises(NotImplementedError, match="IMU"):
-        tt.track(*scene.frames[0], imu=np.zeros((3, 7), np.float32))
+    with pytest.raises(NotImplementedError, match="monocular"):
+        tt.track(scene.frames[0][0], imu=np.zeros((3, 7), np.float32))
     with pytest.raises(NotImplementedError, match="monocular"):
         tt.track(scene.frames[0][0])
     with pytest.raises(NotImplementedError, match="relocalization"):

@@ -91,6 +91,43 @@ def se3_logmap(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([w, v], dim=-1)
 
 
+def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """J_r^{-1}(phi): Log(Exp(phi) Exp(d)) ~ phi + J_r^{-1}(phi) d. (3,) ->
+    (3, 3). The phi^2 coefficient 1/theta^2 - (1 + cos)/(2 theta sin)
+    cancels in float32 for small angles, so below 0.5 rad its series is
+    used (next term theta^6 / 1209600)."""
+    theta2 = torch.sum(phi * phi, dim=-1)[..., None, None]
+    theta = torch.sqrt(theta2 + _EPS**2)
+    W = hat(phi)
+    closed = 1.0 / theta2 - (1.0 + torch.cos(theta)) / (2.0 * theta * torch.sin(theta))
+    series = 1.0 / 12.0 + theta2 / 720.0 + theta2 * theta2 / 30240.0
+    c = torch.where(theta2 < 0.25, series, closed)
+    return _eye3(W) + 0.5 * W + c * (W @ W)
+
+
+def se3_right_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
+    """J_r^{-1}(xi) of SE(3) for xi = [omega, v]: Log(Exp(xi) Exp(d)) ~ xi +
+    J_r^{-1}(xi) d. (6,) -> (6, 6), the series I + ad/2 + ad^2/12 -
+    ad^4/720 in ad_xi = [[omega^, 0], [v^, omega^]] (next term ad^6 /
+    30240): for the small residuals of a prior factor."""
+    Wo, Wv = hat(xi[..., :3]), hat(xi[..., 3:])
+    ad = torch.cat(
+        [torch.cat([Wo, torch.zeros_like(Wo)], dim=-1), torch.cat([Wv, Wo], dim=-1)], dim=-2
+    )
+    ad2 = ad @ ad
+    eye = torch.eye(6, dtype=xi.dtype, device=xi.device)
+    return eye + 0.5 * ad + ad2 / 12.0 - (ad2 @ ad2) / 720.0
+
+
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Ad_T for tangents [omega, v]: T Exp(xi) T^-1 = Exp(Ad_T xi).
+    (4, 4) -> (6, 6) [[R, 0], [t^ R, R]]."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    return torch.cat(
+        [torch.cat([R, torch.zeros_like(R)], dim=-1), torch.cat([hat(t) @ R, R], dim=-1)], dim=-2
+    )
+
+
 def orthonormalize(T: torch.Tensor) -> torch.Tensor:
     """Project the rotation block back onto SO(3) via a quaternion round
     trip (see vslam_tpu/geometry/se3.py: one projection per frame stops a

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from vslam_torch.models import map_state
-from vslam_torch.ops import schur
+from vslam_torch.ops import imu, schur
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -56,6 +56,19 @@ def tracker_state_from_jax(state: dict, host: dict, device) -> tuple[dict, dict]
         "new_kf_slots": [int(s) for s in host["new_kf_slots"]],
     }
     return state_t, host_t
+
+
+def imu_const_from_jax(imu_const, device) -> tuple:
+    """A vslam_tpu tracker's IMU constants (``StereoTracker._imu_const``:
+    gravity_w (3,), T_bc (4, 4), ImuParams), as numpy -> the port's
+    (gravity_w, T_bc) tensors on `device` and its ImuParams of floats:
+    the last three entries of ``_track_step``'s `imu` argument."""
+    gravity_w, T_bc, params = imu_const
+    return (
+        _tensor(np.asarray(gravity_w, np.float32), device),
+        _tensor(np.asarray(T_bc, np.float32), device),
+        imu.ImuParams(*(float(x) for x in params)),
+    )
 
 
 def ba_problem_from_jax(problem: dict, device) -> schur.BAProblem:

@@ -3,7 +3,7 @@ reference FeatureTracker::TrackImage, src/FeatureTracker.cpp:1108-1278).
 
 One tracked frame (:func:`_track_step`): batched L+R extraction (the patch
 windows through the CUDA kernel on a GPU), stereo matching, the
-constant-velocity prediction, the adaptive-radius projection-match +
+constant-velocity or IMU prediction, the adaptive-radius projection-match +
 motion-only-LM retry loop, the radius-4 refine pass, the failure gate and
 landmark miss aging. The host side (:class:`StereoTracker`) keeps the JAX
 package's dispatch-pipeline semantics: frame f is processed (pose
@@ -11,10 +11,11 @@ bookkeeping, keyframe policy, keyframe insertion) only after frames f+1 ..
 f+pipeline_depth were tracked, because that delay decides when keyframes
 fire and when new landmarks become matchable.
 
-Ported: stereo tracking without IMU. The IMU path, MonoTracker and the
-debug hook are not ported and raise; relocalization (lost-tracking
-recovery after ``reseed_after`` refused solves) raises NotImplementedError
-rather than silently turning into a reseed.
+Ported: stereo and stereo-inertial tracking (``imu_cfg``: IMU
+preintegration and the 15-dof visual-inertial solve on every frame).
+MonoTracker and the debug hook are not ported and raise; relocalization
+(lost-tracking recovery after ``reseed_after`` refused solves) raises
+NotImplementedError rather than silently turning into a reseed.
 """
 
 from __future__ import annotations
@@ -28,8 +29,24 @@ import torch
 
 from vslam_torch.geometry import se3
 from vslam_torch.models import map_state
-from vslam_torch.ops import extract, lm, project_match, stereo_match
+from vslam_torch.ops import extract, imu as imu_ops, lm, project_match, stereo_match
 from vslam_torch.utils import metrics as metrics_mod
+
+
+@dataclasses.dataclass
+class ImuConfig:
+    """IMU noise model + extrinsics (reference IMU YAML block,
+    config/config_MH_01.yaml:18-24, and T_bc1 at 112-115)."""
+
+    gyro_noise: float  # rad/s/sqrt(Hz)
+    accel_noise: float  # m/s^2/sqrt(Hz)
+    gyro_walk: float
+    accel_walk: float
+    hz: float
+    T_bc: np.ndarray  # (4, 4) body-to-cam
+    gravity_w: np.ndarray  # (3,) world-frame gravity (measured-gravity init,
+    #                         reference src/VIOSlam.cpp:274)
+    max_samples: int = 64  # per-frame sample capacity (rows beyond it are dropped)
 
 
 @dataclasses.dataclass
@@ -108,10 +125,17 @@ def _track_step(
     p: TrackerParams,
     width: int,
     height: int,
+    imu=None,
 ):
     """One tracked stereo frame. Returns (new_state, outputs); outputs hold
     what a keyframe insertion needs plus the packed f32 ``blob``
-    [pose 16 | vel 3 | bias 6 | stats 9 | miss_age A] the host reads."""
+    [pose 16 | vel 3 | bias 6 | stats 9 | miss_age A] the host reads.
+
+    `imu` (the STEREO_IMU path): (samples (K, 7) host array of [dt, gyro,
+    accel] rows, gravity_w (3,), T_bc (4, 4), ImuParams). Every frame then
+    takes the single-start 15-dof solve, a frame without samples included;
+    its prediction falls back to constant velocity (vslam_tpu
+    tracker.py:283-293, 410-430)."""
     n_levels, min_inliers = p.n_levels, p.min_inliers
     active = state["active"]
     dev = LR.device
@@ -126,12 +150,28 @@ def _track_step(
     # constant-velocity prediction (reference updatePoses, 1699-1708)
     vel_T = pose_prev @ se3.inverse(prev_prev)
     T_pred = vel_T @ pose_prev
-    v0, b0 = state["vel"], state["bias"]
+    has_imu = imu is not None
+    if has_imu:
+        # IMU prediction + preintegration (reference PredictNextPoseIMU,
+        # src/FeatureTracker.cpp:1036-1106) over the rows with dt > 0; it
+        # replaces the constant-velocity prediction when there are any
+        samples, gravity_w, T_bc, imu_params = imu
+        rows = imu_ops.active_rows(samples)
+        v_prev, bias_prev = state["vel"], state["bias"]
+        pre = imu_ops.preintegrate(rows, bias_prev, imu_params)
+        T_prev_wb = pose_prev @ se3.inverse(T_bc)
+        T_pred_wb, v_pred = imu_ops.predict(T_prev_wb, v_prev, pre, bias_prev, bias_prev, gravity_w)
+        if len(rows):
+            T_pred = T_pred_wb @ T_bc
+        v0, b0 = v_pred, bias_prev
+    else:
+        v0, b0 = state["vel"], state["bias"]
     A = active["pos"].shape[0]
 
-    def attempt(T_base, radius, do_right):
-        """Projection matching at `radius` + two-start motion-only LM from
-        T_base; right-image matching only in the refine pass."""
+    def attempt(T_base, v_base, radius, do_right):
+        """Projection matching at `radius` + motion-only LM from T_base (two
+        starts without IMU, the 15-dof solve with it); right-image matching
+        only in the refine pass."""
         proj = project_match.predict_and_cull(
             T_base, active["pos"], active["valid"], K, baseline, width, height,
             active["maxdist"], active["mindist"], n_levels=n_levels,
@@ -174,21 +214,31 @@ def _track_step(
         matched = matched | matched_r
         is_stereo = (midx >= 0) & st["matched"][safe]
         w = extract.inv_sigma2(oct_obs, n_levels, p.scale)
-        # MULTI-START (vslam_tpu/models/tracker.py:372-408): solve from the
-        # prediction AND the previous pose as one batch of 2, keep the one
-        # with more inliers, then lower cost
-        Ts, _, inls, sts, rs = lm.motion_only_ba(
-            torch.stack([T_base, pose_prev]), active["pos"], obs, w, is_stereo,
-            matched_r, matched, K, baseline, max_iters=100,
-        )
-        na, nb = torch.sum(inls[0]), torch.sum(inls[1])
-        use_b = (nb > na) | ((nb == na) & (rs.error[1] < rs.error[0]))
-        T_opt = torch.where(use_b, Ts[1], Ts[0])
-        inl = torch.where(use_b, inls[1], inls[0])
-        st_out = torch.where(use_b, sts[1], sts[0])
+        if has_imu:
+            T_opt, v_opt, b_opt, _, inl, st_out, _ = lm.motion_only_ba_imu(
+                T_base, v_base, bias_prev, T_prev_wb, v_prev, pre, gravity_w,
+                imu_params, T_bc, active["pos"], obs, w, is_stereo, matched_r,
+                matched, K, baseline, max_iters=100,
+            )
+        else:
+            # MULTI-START (vslam_tpu/models/tracker.py:372-408): solve from
+            # the prediction AND the previous pose as one batch of 2, keep
+            # the one with more inliers, then lower cost
+            Ts, _, inls, sts, rs = lm.motion_only_ba(
+                torch.stack([T_base, pose_prev]), active["pos"], obs, w, is_stereo,
+                matched_r, matched, K, baseline, max_iters=100,
+            )
+            na, nb = torch.sum(inls[0]), torch.sum(inls[1])
+            use_b = (nb > na) | ((nb == na) & (rs.error[1] < rs.error[0]))
+            T_opt = torch.where(use_b, Ts[1], Ts[0])
+            inl = torch.where(use_b, inls[1], inls[0])
+            st_out = torch.where(use_b, sts[1], sts[0])
+            v_opt, b_opt = v_base, b0
         inliers = matched & inl
         return {
             "T": T_opt,
+            "v": v_opt,
+            "b": b_opt,
             "midx": midx,
             "inliers": inliers,
             "n_m": torch.sum(matched),
@@ -204,18 +254,18 @@ def _track_step(
 
     # adaptive-radius retry loop: every attempt starts from the prediction;
     # the host reads the inlier count once per attempt
-    T_opt, n_found = T_pred, 0
+    T_opt, v_opt, n_found = T_pred, v0, 0
     for radius in radii:
         if n_found >= min_inliers:
             break
-        res = attempt(T_pred, radius, do_right=False)
-        T_opt, n_found = res["T"], int(res["n_i"])
+        res = attempt(T_pred, v0, radius, do_right=False)
+        T_opt, v_opt, n_found = res["T"], res["v"], int(res["n_i"])
 
     # refine pass at the small radius from the optimized pose
-    res = attempt(T_opt, refine_radius, do_right=True)
+    res = attempt(T_opt, v_opt, refine_radius, do_right=True)
     T_opt, inliers, midx, midx_r = res["T"], res["inliers"], res["midx"], res["midx_r"]
     n_m, n_i, n_st = res["n_m"], res["n_i"], res["n_st"]
-    v_opt, b_opt = v0, b0
+    v_opt, b_opt = res["v"], res["b"]
 
     # ---- tracking-failure gate (vslam_tpu/models/tracker.py:485-540) ----
     pred_step = torch.linalg.norm(T_pred[:3, 3] - pose_prev[:3, 3])
@@ -237,6 +287,8 @@ def _track_step(
         | ~torch.all(torch.isfinite(v_opt))
     )
     T_opt = torch.where(lost, T_pred, T_opt)
+    v_opt = torch.where(lost, v0, v_opt)
+    b_opt = torch.where(lost, b0, b_opt)
     inliers = inliers & ~lost
     midx = torch.where(lost, -1, midx)
     midx_r = torch.where(lost, -1, midx_r)
@@ -436,6 +488,21 @@ def _prepare_and_commit(
     return data["host_blob"]
 
 
+def _imu_predict(samples, T_prev_wc, v_prev, bias_prev, gravity_w, T_bc, imu_params):
+    """IMU dead-reckoning step (reference PredictNextPoseIMU,
+    src/FeatureTracker.cpp:1036-1106; vslam_tpu tracker.py:850-862) over the
+    rows of `samples` with dt > 0. Returns (T_pred_wc, v_pred); without such
+    rows, the inputs unchanged."""
+    rows = imu_ops.active_rows(samples)
+    if not len(rows):
+        return T_prev_wc, v_prev
+    pre = imu_ops.preintegrate(rows, bias_prev, imu_params)
+    T_pred_wb, v_pred = imu_ops.predict(
+        T_prev_wc @ se3.inverse(T_bc), v_prev, pre, bias_prev, bias_prev, gravity_w
+    )
+    return T_pred_wb @ T_bc, v_pred
+
+
 def _map_ages(targets: np.ndarray, layout: np.ndarray, ages: np.ndarray) -> np.ndarray:
     """Look up each target landmark id's miss age in a (layout, ages) pair
     from a possibly older active-set layout; ids not present age 0."""
@@ -476,13 +543,24 @@ class StereoTracker:
         *,
         device="cuda",
     ):
-        if imu_cfg is not None:
-            raise NotImplementedError("vslam_torch: the IMU tracking path is not ported yet")
+        """`imu_cfg` (an :class:`ImuConfig`) selects the stereo-inertial
+        path: every tracked frame then takes the 15-dof solve."""
         self.device = torch.device(device)
         if world.device != self.device:
             raise ValueError(f"tracker device {self.device} != world map device {world.device}")
         self.params = params or TrackerParams()
         p = self.params
+        self.imu_cfg = imu_cfg
+        self._imu_const = None
+        if imu_cfg is not None:
+            self._imu_const = (
+                self._to_device(imu_cfg.gravity_w),
+                self._to_device(np.asarray(imu_cfg.T_bc, np.float32).reshape(4, 4)),
+                imu_ops.ImuParams(
+                    gyro_noise=imu_cfg.gyro_noise, accel_noise=imu_cfg.accel_noise,
+                    gyro_walk=imu_cfg.gyro_walk, accel_walk=imu_cfg.accel_walk,
+                ),
+            )
         self.velocity = np.zeros(3, np.float32)
         self.bias = np.zeros(6, np.float32)
         self.K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
@@ -531,6 +609,15 @@ class StereoTracker:
     def debug_hook(self, fn):
         """The per-frame diagnostic hook (utils/debug_view) is not ported."""
         raise NotImplementedError("vslam_torch: the tracker debug hook is not ported yet")
+
+    def set_gravity(self, gravity_w: np.ndarray):
+        """Install the measured-gravity vector (the reference computes it from
+        the first accel sample, src/VIOSlam.cpp:274, after construction)."""
+        if self.imu_cfg is None:
+            return
+        self.imu_cfg.gravity_w = np.asarray(gravity_w, np.float32)
+        _, T_bc, prm = self._imu_const
+        self._imu_const = (self._to_device(self.imu_cfg.gravity_w), T_bc, prm)
 
     # ------------------------------------------------------------------
     def _to_device(self, a) -> torch.Tensor:
@@ -589,14 +676,13 @@ class StereoTracker:
         """Track one rectified stereo pair ((H, W) arrays, or a pre-stacked
         (2, H, W) array or tensor as `left`); processes the frame
         ``pipeline_depth`` frames back and returns the newest PROCESSED
-        pose."""
-        if imu is not None:
-            raise NotImplementedError("vslam_torch: the IMU tracking path is not ported yet")
+        pose. `imu`: the (K, 7) [dt, gyro, accel] rows since the previous
+        frame (used only with an ``imu_cfg``; at most ``max_samples``)."""
         with self.metrics.stage("track"):
             self.counters.inc("frames")
-            return self._track_frame(left, right)
+            return self._track_frame(left, right, imu)
 
-    def _track_frame(self, left, right):
+    def _track_frame(self, left, right, imu=None):
         p = self.params
         if right is None:
             if getattr(left, "ndim", 2) != 3:
@@ -612,10 +698,16 @@ class StereoTracker:
             self.frame_idx += 1
             return self.pose.copy()
 
+        imu_arg = None
+        if self.imu_cfg is not None:
+            S = self.imu_cfg.max_samples
+            rows = np.zeros((0, 7), np.float32) if imu is None else np.asarray(imu, np.float32)[:S]
+            imu_arg = (rows, *self._imu_const)
         radii = self._radii_first if self.frame_idx == 1 else self._radii
         self._state, outputs = _track_step(
             LR, self._state, radii, p.refine_radius, self._desc_thr, self._ratio,
             self.K, self.baseline, self.scale_factors, p, self.width, self.height,
+            imu=imu_arg,
         )
         self._pending.append(
             (self.frame_idx, outputs, self.active_ids.copy(), self._D.copy())

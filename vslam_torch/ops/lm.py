@@ -1,5 +1,6 @@
-"""Batched Levenberg-Marquardt on SE(3) and motion-only BA (port of
-vslam_tpu/ops/lm.py, no-IMU path).
+"""Batched Levenberg-Marquardt on manifolds and motion-only BA (port of
+vslam_tpu/ops/lm.py): the SE(3) pose solve and the 15-dof visual-inertial
+solve over (pose, velocity, bias).
 
 GTSAM LevenbergMarquardtOptimizer semantics, as in the reference
 (lm.py:86-95): lambda x/÷10 on reject/accept, clipped to [1e-10, 1e8];
@@ -9,9 +10,10 @@ problems (the tracker's two starts): a lane that is done is frozen, so
 every lane stops at the iteration where the JAX loop stops. The host reads
 the done flags only every ``_DONE_CHECK_EVERY`` iterations.
 
-The Jacobian is the analytic one of the projection residuals at the zero
-tangent of the right retraction T * exp(xi) — what ``jax.jacfwd`` computes
-at lm.py:73, without the forward-mode pass.
+The Jacobians are analytic, at the zero tangent of the retraction — what
+``jax.jacfwd`` computes at lm.py:73, without the forward-mode pass: the
+projection rows in the pose tangent of T * exp(xi), and the 30 inertial,
+bias and prior rows of the visual-inertial solve in its 15-vector tangent.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ _DONE_CHECK_EVERY = 4
 
 
 class LMResult(NamedTuple):
-    state: torch.Tensor  # (B, 4, 4)
+    state: torch.Tensor | tuple  # (B, 4, 4), or a tuple of (B, ...) leaves
     error: torch.Tensor  # (B,) final 0.5 * ||r||^2
     iterations: torch.Tensor  # (B,) int64
     lam: torch.Tensor  # (B,)
@@ -41,23 +43,34 @@ def _half_sq(r: torch.Tensor) -> torch.Tensor:
     return 0.5 * torch.sum(r * r, dim=tuple(range(1, r.ndim)))
 
 
+def _select(mask: torch.Tensor, new, old):
+    """Per problem of the batch, `new` where `mask` else `old`, leaf by leaf."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(mask.view((-1,) + (1,) * (new.ndim - 1)), new, old)
+    return tuple(_select(mask, n, o) for n, o in zip(new, old))
+
+
 def lm_solve(
     linearize: Callable,
     residual: Callable,
-    state0: torch.Tensor,
+    state0,
     max_iters: int = 100,
     lambda0: float = 1e-5,
     lambda_factor: float = 10.0,
     rel_tol: float = 1e-5,
     min_diag: float = 1e-6,
+    retract: Callable = se3.retract,
 ) -> LMResult:
-    """Minimize 0.5 * ||r(T)||^2 for a batch of poses T (B, 4, 4) with the
-    right retraction T * exp(delta).
+    """Minimize 0.5 * ||r(x)||^2 for a batch of B states x with the
+    retraction `retract(x, delta)` (default: poses T (B, 4, 4) with the right
+    retraction T * exp(delta)). A state is a tensor or a tuple of tensors,
+    each with the batch as its leading dimension.
 
-    residual(T) -> r (B, R); linearize(T) -> (r (B, R), J (B, R, 6)) with
+    residual(x) -> r (B, R); linearize(x) -> (r (B, R), J (B, R, D)) with
     J = dr/d(delta) at delta = 0. Invalid rows must already be zero."""
-    B = state0.shape[0]
-    dev = state0.device
+    lead = state0 if isinstance(state0, torch.Tensor) else state0[0]
+    B = lead.shape[0]
+    dev = lead.device
     state = state0
     err = _half_sq(residual(state0))
     lam = torch.full((B,), lambda0, dtype=torch.float32, device=dev)
@@ -74,11 +87,11 @@ def lm_solve(
         diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=min_diag)
         A = H + lam[:, None, None] * torch.diag_embed(diag)
         delta = torch.linalg.solve_ex(A, -g)[0]  # no host sync on error check
-        new_state = se3.retract(state, delta)
+        new_state = retract(state, delta)
         new_err = _half_sq(residual(new_state))
         improved = new_err < err
         upd = active & improved
-        state = torch.where(upd[:, None, None], new_state, state)
+        state = _select(upd, new_state, state)
         lam_new = torch.where(improved, lam / lambda_factor, lam * lambda_factor)
         lam_new = torch.clamp(lam_new, 1e-10, 1e8)
         rel = torch.abs(err - new_err) / torch.clamp(err, min=1e-12)
@@ -248,3 +261,132 @@ def motion_only_ba(
     inliers, st_out = classify(T_opt, st1)
     chi2 = reproj_chi2(T_opt, pts_w, obs, inv_sigma2, st_out, is_right, valid, K, baseline)
     return T_opt, chi2, inliers, st_out, result
+
+
+# ---------------------------------------------------------------------------
+# IMU-fused motion-only bundle adjustment (15-dof: pose + velocity + bias)
+# ---------------------------------------------------------------------------
+
+
+def motion_only_ba_imu(
+    T_init: torch.Tensor,  # (4, 4) predicted cam-to-world (left camera)
+    v_init: torch.Tensor,  # (3,) predicted world velocity (body)
+    bias_prev: torch.Tensor,  # (6,) [ba, bg] of the previous frame (frozen)
+    T_prev_wb: torch.Tensor,  # (4, 4) previous BODY pose (frozen anchor x0)
+    v_prev: torch.Tensor,  # (3,) previous world velocity (frozen v0)
+    pre,  # imu.PreintState over the inter-frame samples
+    gravity_w: torch.Tensor,  # (3,)
+    imu_params,  # imu.ImuParams
+    T_bc: torch.Tensor,  # (4, 4) body-to-cam extrinsic (reference T_bc1)
+    pts_w: torch.Tensor,
+    obs: torch.Tensor,
+    inv_sigma2: torch.Tensor,
+    is_stereo: torch.Tensor,
+    is_right: torch.Tensor,
+    valid: torch.Tensor,
+    K: torch.Tensor,
+    baseline,
+    max_iters: int = 100,
+    bias_sigma: float = 1e-3,
+):
+    """Visual-inertial pose solve (reference estimatePoseGTSAM, IMU branch,
+    src/FeatureTracker.cpp:301-387; vslam_tpu/ops/lm.py:275-379): x0/v0/b0
+    frozen, the CombinedImuFactor(x0, v0, x1, v1, b0, b1), the bias
+    between-factor (sigma 1e-3), priors on x1/v1 at the propagated state,
+    plus the projection/stereo factors of :func:`motion_only_ba`.
+
+    The state is (T_wc, v_w, bias), 6 + 3 + 6 = 15 dof, one problem. The
+    visual rows take the analytic projection Jacobian (pose columns only)
+    with the pass-1 Huber weight frozen at the linearization point; the 30
+    inertial, bias and prior rows take the analytic Jacobian of
+    :func:`imu.combined_residual_and_jacobian` and the SE(3) right
+    Jacobian of the pose prior, carried from the body perturbation to the
+    camera's by Ad(T_bc). Returns (T_opt (4, 4), v_opt (3,), bias_opt
+    (6,), chi2 (M,), inliers (M,), is_stereo_out (M,), LMResult of the
+    second pass)."""
+    from vslam_torch.ops import imu as imu_mod
+
+    dev = T_init.device
+    weights = torch.sqrt(inv_sigma2)
+    huber_delta = float(torch.sqrt(torch.tensor(CHI2_3DOF, dtype=torch.float32)))
+    T_cb = se3.inverse(T_bc)
+    # T_wc Exp(xi) T_cb = T_wb Exp(Ad(T_bc) xi): camera tangent -> body tangent
+    cam_to_body = se3.adjoint(T_bc)
+    L = imu_mod.cov_factor(pre)  # the covariance is constant over the solve
+    # propagated (predicted) state for the x1/v1 priors (sigma 1)
+    T_pred_wb_inv = se3.inverse(T_init @ T_cb)
+    eye3 = torch.eye(3, device=dev)
+
+    def classify(T, st):
+        chi2_3 = reproj_chi2(T[None], pts_w, obs, inv_sigma2, st, is_right, valid, K, baseline)[0]
+        chi2_2 = reproj_chi2(
+            T[None], pts_w, obs, inv_sigma2, torch.zeros_like(st), is_right, valid, K, baseline
+        )[0]
+        demote = st & (chi2_3 >= CHI2_3DOF) & (chi2_2 < CHI2_3DOF)
+        keep = valid & ((chi2_3 < CHI2_3DOF) | demote)
+        return keep, st & ~demote
+
+    def retract(state, d):
+        T, v, b = state
+        return (se3.retract(T, d[:, :6]), v + d[:, 6:9], b + d[:, 9:15])
+
+    def inertial_rows(T_wc, v_w, b, with_jac):
+        """(30,) [CombinedImuFactor 15 | bias between 6 | pose prior 6 |
+        velocity prior 3] and, with_jac, their (30, 15) Jacobian."""
+        T_wb = T_wc @ T_cb
+        args = (T_prev_wb, v_prev, bias_prev, T_wb, v_w, b, pre, bias_prev, gravity_w, imu_params)
+        if with_jac:
+            r_imu, J_imu = imu_mod.combined_residual_and_jacobian(*args, L=L)
+        else:
+            r_imu = imu_mod.combined_residual(*args, L=L)
+        r_bias = (b - bias_prev) / bias_sigma
+        r_prior_p = se3.se3_logmap(T_pred_wb_inv @ T_wb)
+        r_prior_v = v_w - v_init
+        r = torch.cat([r_imu, r_bias, r_prior_p, r_prior_v])
+        if not with_jac:
+            return r
+        J = torch.zeros((30, 15), device=dev)
+        J[:15] = J_imu
+        J[15:21, 9:15] = torch.eye(6, device=dev) / bias_sigma
+        J[21:27, :6] = se3.se3_right_jacobian_inv(r_prior_p)
+        J[27:30, 6:9] = eye3
+        J[:, :6] = J[:, :6] @ cam_to_body
+        return r, J
+
+    def solve(state0, mask, st, robust):
+        def lin(state, with_jac):
+            T, v, b = state
+            pc = _project(T, pts_w, K, baseline)
+            r, J = _residuals(pc, obs, weights, st[None], is_right, mask[None], K, baseline, with_jac)
+            if robust:
+                # IRLS Huber on the visual rows, frozen per linearization
+                n = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-18)
+                w_h = torch.sqrt(torch.clamp(huber_delta / n, max=1.0))
+                r = r * w_h[..., None]
+                if with_jac:
+                    J = J * w_h[..., None, None]
+            if not with_jac:
+                return torch.cat([r.reshape(1, -1), inertial_rows(T[0], v[0], b[0], False)[None]], dim=1)
+            r_in, J_in = inertial_rows(T[0], v[0], b[0], True)
+            J = J.reshape(1, -1, 6)
+            J_vis = torch.cat([J, J.new_zeros(J.shape[:2] + (9,))], dim=-1)
+            return (
+                torch.cat([r.reshape(1, -1), r_in[None]], dim=1),
+                torch.cat([J_vis, J_in[None]], dim=1),
+            )
+
+        return lm_solve(
+            lambda s: lin(s, True), lambda s: lin(s, False), state0,
+            max_iters=max_iters, retract=retract,
+        )
+
+    res1 = solve((T_init[None], v_init[None], bias_prev[None]), valid, is_stereo, robust=True)
+    keep, st1 = classify(res1.state[0][0], is_stereo)
+    enough = torch.sum(keep) >= torch.clamp(torch.sum(valid) // 4, min=6)
+    keep = torch.where(enough, keep, valid)
+    st1 = torch.where(enough, st1, is_stereo)
+    result = solve(res1.state, keep, st1, robust=False)
+    T_opt, v_opt, b_opt = (x[0] for x in result.state)
+    inliers, st_out = classify(T_opt, st1)
+    chi2 = reproj_chi2(T_opt[None], pts_w, obs, inv_sigma2, st_out, is_right, valid, K, baseline)[0]
+    return T_opt, v_opt, b_opt, chi2, inliers, st_out, result

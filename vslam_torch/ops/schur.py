@@ -23,13 +23,15 @@ Differences from the JAX version, none of which changes the math:
   stop iteration does not depend on that interval.
 
 Not ported: the observation-row sharding (``axis_name``, ROADMAP A12) and
-the slab-chunked reduction (``n_slabs``, A11, global BA); the staged
-``local_ba_round1``/``round2`` belong to the async mapper (not ported).
+the slab-chunked reduction (``n_slabs``, A11, global BA). The JAX
+package's staged ``local_ba_round1``/``round2`` are not needed: the async
+mapper runs both rounds on its worker thread.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -72,17 +74,35 @@ def _not_ported(axis_name, n_slabs):
         )
 
 
+# The deterministic-algorithms flag is process-wide, and the async mapper
+# solves on a worker thread while the tracker runs: the flag is switched on
+# by the first thread to enter and restored by the last to leave. Meanwhile
+# the other thread runs under it too, which changes no result; warn_only
+# keeps an op without a deterministic version there from raising.
+_DET_LOCK = threading.Lock()
+_det_users = 0
+_det_prev = (False, False)
+
+
 @contextlib.contextmanager
 def _deterministic():
-    prev, warn = (
-        torch.are_deterministic_algorithms_enabled(),
-        torch.is_deterministic_algorithms_warn_only_enabled(),
-    )
-    torch.use_deterministic_algorithms(True)
+    global _det_users, _det_prev
+    with _DET_LOCK:
+        if _det_users == 0:
+            _det_prev = (
+                torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+            )
+            prev, warn = _det_prev
+            torch.use_deterministic_algorithms(True, warn_only=warn if prev else True)
+        _det_users += 1
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(prev, warn_only=warn)
+        with _DET_LOCK:
+            _det_users -= 1
+            if _det_users == 0:
+                torch.use_deterministic_algorithms(_det_prev[0], warn_only=_det_prev[1])
 
 
 def _scatter_add(out: torch.Tensor, index: tuple, values: torch.Tensor) -> torch.Tensor:
