@@ -14,8 +14,10 @@ own line:
    (torch.equal required): extract_windows at every bench level shape, at
    an odd shape and with out-of-range corners, and extract_windows_levels
    on frame 0's full 8-level table, as the main path calls it, for the
-   bench configuration and for the KITTI one (1248x384, 2048 features,
-   seed 5; the synthetic driver's table). Then each table's one launch is
+   bench configuration, for the KITTI one (1248x384, 2048 features,
+   seed 5; the synthetic driver's table) and for the mono one (one view,
+   752x480, 1024 features, frame 0 of phase 13's scene). Then each table's
+   one launch is
    timed: device time on a primed stream and host time per call
    (vslam_torch/kernels/timing.py), against the plain version, one
    advanced-indexing call per level (the library yardstick) and the bound
@@ -71,10 +73,38 @@ own line:
    syncs of one solve and of one preintegration (torch.profiler); then 8
    frames on the card and on the CPU, the same keyframe slots, poses
    within 1e-3 m / 1e-3 rad;
-12. driver: python -m vslam_torch.run_synthetic --scene kitti at its
-   default 40 frames (1248x384, 2048 features, async BA) on the card: its
-   [result] fields, ATE <= 0.05 m, extract_windows launches (40) and plain
-   calls (0).
+12. driver: python -m vslam_torch.run_synthetic --scene kitti --global-ba
+   at its default 40 frames (1248x384, 2048 features, async BA, then one
+   BA over the whole map) and --scene mono --frames 24 on the card: their
+   [result] fields, ATE <= 0.05 m (before and after the global BA),
+   extract_windows launches (40; mono: bootstrap views + tracked frames)
+   and plain calls (0);
+13. mono: VSlamSystem in slamMode 2 (MonoTracker: the IMU bootstrap, the
+   init triangulation, mono triangulation at every keyframe) on the card
+   over the bench's lateral mono scene (752x480, seed 11, 900 points,
+   20 fps, 60 frames, distinct texture; bench.py:175-241), frames staged on
+   the card: fps, frame p50/p90, bootstrap views and gates, init
+   landmarks, keyframes, landmarks, ATE (must be <= 0.05 m, bench.py:418's
+   gate), extract_windows launches (bootstrap views + tracked frames) and
+   plain calls (0); the same run again, bit for bit; then card vs CPU on
+   the first 16 frames (the same slots, poses within 1e-3 m / 1e-3 rad);
+14. recovery: StereoTracker on the bench scene at 752x480: frames 0-7, 6
+   black frames, frames 0-7 again must relocalize once, the last 3 poses
+   within 0.15 m of the truth; the retrieval's votes and slot, and the
+   launches, syncs and wall of one retrieve; then seed 3, 3 black frames,
+   seed 23 must re-seed, the relative motion after it within 0.15 m;
+15. global BA: VSlamSystem.global_ba after phase 6's run (wall, LM
+   iterations, ATE before and after; launches, syncs and device busy of a
+   second run_global), then run_global on a 256-keyframe, 50,000-landmark
+   corridor map (1024 keys per keyframe; utils/synthetic.corridor_map)
+   with drifted poses, which must take 8 landmark slabs and meet
+   tests/test_ba.py:264-283 (error < 0.01 per observation, relative error
+   < 0.7x the drifted one): wall, peak memory, and the launches of one
+   slabbed LM iteration. Phase 7 also solves its window with the Schur
+   reduction in 4 slabs against 1 (poses within 5e-4, points within 5e-3
+   over the landmarks whose 3x3 block is conditioned, errors within 1e-3
+   relative, the same kill mask; the worst landmark's rows, block
+   eigenvalues and move against its ray printed).
 
 The second-to-last line is the kernel report {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Nothing is caught: any failure raises.
@@ -94,7 +124,7 @@ import torch
 from vslam_torch import kernels, run_synthetic
 from vslam_torch.geometry import triangulate
 from vslam_torch.kernels import timing
-from vslam_torch.models import local_mapper, map_state, system, tracker
+from vslam_torch.models import local_mapper, map_state, reloc, system, tracker
 from vslam_torch.ops import extract, imu, lm, patches, pyramid, schur
 from vslam_torch.utils import datasets, synthetic, trajectory
 from vslam_torch.utils.config import ConfigFile
@@ -115,10 +145,22 @@ BA_TOL_M, BA_TOL_RAD, CHI2_BAND = 1e-4, 1e-4, 1e-3
 IMU_ATE_GATE_M, IMU_CPU_FRAMES = 0.08, 8
 # the synthetic driver's KITTI scene (vslam_torch/run_synthetic.py)
 KITTI_W, KITTI_H, KITTI_SEED, KITTI_FEATURES, KITTI_FRAMES = 1248, 384, 5, 2048, 40
+# the bench's mono-IMU scene (bench.py:175-241) and its gate (bench.py:418)
+MONO_SEED, MONO_FRAMES, MONO_CPU_FRAMES, MONO_DRIVER_FRAMES = 11, 60, 16, 24
+MONO_SCENE = dict(n_points=900, width=WIDTH, height=HEIGHT, fps=20.0, seed=MONO_SEED,
+                  texture="distinct", motion="lateral")
+# recovery (tests/test_tracking.py:323-409's sequences on the bench scene)
+RECOVERY_GATE_M = 0.15
+# map-scale global BA (tests/test_ba.py:231-283)
+MAP_KF, MAP_LM, MAP_SLABS = 256, 50_000, 8
+
+
+T0 = time.perf_counter()
 
 
 def say(phase: str, **fields):
-    print(f"[{phase}] " + json.dumps(fields), flush=True)
+    """One phase's line; `t_s` is the script's elapsed wall time."""
+    print(f"[{phase}] " + json.dumps({**fields, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def phase_device() -> str:
@@ -140,11 +182,13 @@ def phase_build():
 
 
 def _level_inputs(scene, dev, height=HEIGHT, width=WIDTH, n_features=PARAMS["n_features"],
-                  seed=SEED):
+                  seed=SEED, mono=False):
     """The main path's inputs to extract_windows for frame 0: every level's
-    blurred L+R image, the level quota of keys, corners from a seeded
-    generator including the extreme corners."""
-    imgs = torch.from_numpy(np.stack([scene.render(0), scene.render(0, right=True)])).to(dev)
+    blurred L+R image (the left one alone with `mono`), the level quota of
+    keys, corners from a seeded generator including the extreme corners."""
+    views = [scene.render(0)] if mono else [scene.render(0), scene.render(0, right=True)]
+    imgs = torch.from_numpy(np.stack(views)).to(dev)
+    B = imgs.shape[0]
     shapes = pyramid.level_shapes(height, width, PARAMS["n_levels"], 1.2)
     quotas = extract.level_quotas(n_features, PARAMS["n_levels"], 1.2)
     rng = np.random.default_rng(seed)
@@ -154,8 +198,8 @@ def _level_inputs(scene, dev, height=HEIGHT, width=WIDTH, n_features=PARAMS["n_f
             cur = pyramid.resize_bilinear_batch(cur, h, w)
         if q <= 0:
             continue
-        x0 = rng.integers(0, w - PATCH + 1, size=(2, q)).astype(np.int32)
-        y0 = rng.integers(0, h - PATCH + 1, size=(2, q)).astype(np.int32)
+        x0 = rng.integers(0, w - PATCH + 1, size=(B, q)).astype(np.int32)
+        y0 = rng.integers(0, h - PATCH + 1, size=(B, q)).astype(np.int32)
         x0[:, :2], y0[:, :2] = [0, w - PATCH], [0, h - PATCH]
         cases.append((f"L{lvl} {h}x{w} q={q}", pyramid.gaussian_blur_batch(cur).contiguous(),
                       torch.from_numpy(x0).to(dev), torch.from_numpy(y0).to(dev), PATCH, PATCH))
@@ -199,6 +243,16 @@ def phase_kernels_kitti(dev, smi) -> dict:
     agree, errs = _agreement()
     t = _table(cases, agree, smi, f"KITTI {KITTI_W}x{KITTI_H}, {KITTI_FEATURES} keys, frame 0, "
                                   "8 levels, L+R, one launch")
+    return {"max_abs_err": max(errs), **t}
+
+
+def phase_kernels_mono(dev, smi) -> dict:
+    """extract_windows_levels on frame 0's one-view table of the mono scene."""
+    scene = synthetic.make_scene(n_frames=1, **MONO_SCENE)
+    cases = _level_inputs(scene, dev, seed=MONO_SEED, mono=True)
+    agree, errs = _agreement()
+    t = _table(cases, agree, smi, f"mono {WIDTH}x{HEIGHT}, {PARAMS['n_features']} keys, frame 0, "
+                                  "8 levels, one view (B=1), one launch")
     return {"max_abs_err": max(errs), **t}
 
 
@@ -461,11 +515,12 @@ def _solve(p: schur.BAProblem, stats=None):
     return out
 
 
-def _profile_counts(fn) -> dict:
+def _profile_counts(fn, top: int = 0) -> dict:
     """Kernel launches, stream syncs and memcpy calls of one call of fn()
     (which must end with a synchronize), from the profiler's runtime-API
     events; the device busy time is the sum of the kernels' own times, the
-    wall time is taken with the profiler on."""
+    wall time is taken with the profiler on; `top`: the kernels with the
+    most device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -477,9 +532,57 @@ def _profile_counts(fn) -> dict:
     sync = sum(v for k, v in counts.items() if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
     busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return {"kernel_launches": launch, "stream_syncs": sync,
-            "memcpy_calls": counts.get("cudaMemcpyAsync", 0),
-            "device_busy_ms": busy_us / 1e3, "profiled_wall_ms": wall_ms}
+    out = {"kernel_launches": launch, "stream_syncs": sync,
+           "memcpy_calls": counts.get("cudaMemcpyAsync", 0),
+           "device_busy_ms": busy_us / 1e3, "profiled_wall_ms": wall_ms}
+    if top:
+        dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev.sort(key=lambda e: -getattr(e, "self_device_time_total", 0))
+        out["top_kernels"] = [{"name": e.key[:80], "count": e.count,
+                               "ms": getattr(e, "self_device_time_total", 0) / 1e3} for e in dev[:top]]
+    return out
+
+
+# a landmark's 3x3 block beyond this condition number has no depth that
+# f32 can resolve (the 24 km landmark of phase 7's window, PERF.md)
+LM_COND_MAX = 1e6
+
+
+def _slab_agreement(a, sl, p: schur.BAProblem) -> dict:
+    """Two solves of one window, unslabbed (a) and slabbed (sl): the
+    largest pose difference, the errors and kills, and the largest point
+    difference over the landmarks whose undamped 3x3 block has a condition
+    number under LM_COND_MAX (the gate) and over the others. A landmark
+    whose depth is unobserved (one seen at ~infinity: its stereo row has no
+    disparity left) moves along its ray under any change of the step,
+    which leaves its residual as it was. The worst landmark is printed
+    with its rows, its block's eigenvalues and the cosine of its move to
+    its ray."""
+    q = a[0]
+    L = p.pts.shape[0]
+    n_rows = torch.bincount(q.obs_lm[q.obs_valid], minlength=L)
+    n_stereo = torch.bincount(q.obs_lm[q.obs_valid & q.obs_stereo], minlength=L)
+    ev = torch.linalg.eigvalsh(schur._assemble(q)[1].double())
+    placed = p.pt_valid & (n_rows > 0) & (ev[:, 0] * LM_COND_MAX > ev[:, 2])
+    loose = p.pt_valid & ~placed
+    d = sl[0].pts - q.pts
+    dl = torch.where(p.pt_valid, d.abs().amax(dim=1), 0.0)
+    worst = int(torch.argmax(dl))
+    rows = (q.obs_lm == worst) & q.obs_valid
+    ray = q.pts[worst] - q.poses[q.obs_kf[rows], :3, 3].mean(dim=0)
+    cos = float(torch.abs(torch.dot(d[worst], ray)) / (d[worst].norm() * ray.norm()).clamp(min=1e-30))
+    return {
+        "max_dpose": float((sl[0].poses - q.poses).abs().max()),
+        "max_dpt_conditioned": float(dl[placed].max()), "landmarks_conditioned": int(placed.sum()),
+        "max_dpt_other": float(dl[loose].max()) if bool(loose.any()) else 0.0,
+        "landmarks_other": int(loose.sum()),
+        "worst": {"slot": worst, "dpt": float(dl[worst]), "rows": int(n_rows[worst]),
+                  "stereo_rows": int(n_stereo[worst]), "cos_move_ray": cos,
+                  "hll_eigenvalues": ev[worst].tolist(), "range_m": float(ray.norm())},
+        "err_slabbed": float(sl[1]), "err_unslabbed": float(a[1]),
+        "kills_slabbed": int(sl[2].sum()), "kills_unslabbed": int(a[2].sum()),
+        "same_kills": bool(torch.equal(sl[2], a[2])),
+    }
 
 
 def phase_ba(p: schur.BAProblem, sys_: system.VSlamSystem):
@@ -521,15 +624,25 @@ def phase_ba(p: schur.BAProblem, sys_: system.VSlamSystem):
         raise AssertionError(f"card and CPU BA poses differ: {dt.max()} m, {ang.max()} rad")
     if not near:
         raise AssertionError(f"kill masks differ away from the chi2 threshold: {rows}")
+    # the Schur reduction in 4 landmark slabs against 1 (tests/test_ba.py:141-147)
+    t0 = time.perf_counter()
+    sl = schur.local_ba_two_rounds(p, n_slabs=4)
+    torch.cuda.synchronize()
+    ms_slab = (time.perf_counter() - t0) * 1e3
+    slab = _slab_agreement(a, sl, p)
+    say("ba_slabbed", n_slabs=4, card_ms=ms_slab, unslabbed_card_ms=ms_a, **slab)
+    if (slab["max_dpose"] > 5e-4 or slab["max_dpt_conditioned"] > 5e-3
+            or abs(slab["err_slabbed"] - slab["err_unslabbed"]) > 1e-3 * max(slab["err_unslabbed"], 1.0)
+            or slab["kills_slabbed"] != slab["kills_unslabbed"] or not slab["same_kills"]):
+        raise AssertionError(f"slabbed BA differs: {slab}")
 
     # the pieces of one LM iteration, each alone
     lam = p.poses.new_tensor(1e-4)
-    blocks = schur._assemble(p)
     pieces = {
         "obs_residual_jacobians": lambda: schur._obs_residual_and_jacobians(p),
         "odometry_residual_jacobians": lambda: schur._odometry_residual_and_jacobians(p),
         "assemble": lambda: schur._assemble(p),
-        "schur_solve": lambda: schur._schur_solve(p, *blocks, lam),
+        "schur_step": lambda: schur._schur_step(p, lam, schur._slabs(p, 1)),
         "ba_error": lambda: schur.ba_error(p),
         "obs_chi2": lambda: schur.obs_chi2(p),
     }
@@ -687,19 +800,280 @@ def phase_imu(scene, pairs, bins) -> int:
     return launches
 
 
-def phase_driver() -> int:
+def _driver(argv) -> tuple[dict, int]:
     with _plain_calls() as plain_devices:
         patches.LAUNCHES = 0
-        r = run_synthetic.main(["--scene", "kitti"])
+        r = run_synthetic.main(argv)
         torch.cuda.synchronize()
         launches = patches.LAUNCHES
-    say("driver", **r, extract_windows_launches=launches, plain_calls_on_card=len(plain_devices))
-    if r["frames"] != KITTI_FRAMES or launches != KITTI_FRAMES or plain_devices:
-        raise AssertionError(f"driver: {r['frames']} frames, {launches} launches, "
-                             f"{len(plain_devices)} plain calls")
+    say("driver", argv=argv, **r, extract_windows_launches=launches,
+        plain_calls_on_card=len(plain_devices))
+    if plain_devices:
+        raise AssertionError(f"driver {argv}: {len(plain_devices)} plain calls")
     if not r["ate_m"] <= ATE_GATE_M:
-        raise AssertionError(f"driver KITTI ATE {r['ate_m']} m > {ATE_GATE_M} m")
+        raise AssertionError(f"driver {argv}: ATE {r['ate_m']} m > {ATE_GATE_M} m")
+    return r, launches
+
+
+def phase_driver() -> tuple[int, int]:
+    """The driver's KITTI scene with a global BA after it, then its mono
+    scene for 24 frames."""
+    r, launches = _driver(["--scene", "kitti", "--global-ba"])
+    if r["frames"] != KITTI_FRAMES or launches != KITTI_FRAMES:
+        raise AssertionError(f"driver: {r['frames']} frames, {launches} launches")
+    if not (r["ate_before_global_ba_m"] <= ATE_GATE_M and np.isfinite(r["global_ba_error"])):
+        raise AssertionError(f"driver global BA: {r}")
+    m, launches_mono = _driver(["--scene", "mono", "--frames", str(MONO_DRIVER_FRAMES)])
+    want = m["bootstrap_views"] + MONO_DRIVER_FRAMES - 1 - m["init_frame"]
+    if launches_mono != want:
+        raise AssertionError(f"driver mono: {launches_mono} launches, want {want}")
+    return launches, launches_mono
+
+
+def _mono_system(scene, device):
+    """The facade in slamMode 2 at the bench's mono configuration: the IMU
+    block of the driver's config (with the scene's gravity) and the scene's
+    initial velocity."""
+    cfg = run_synthetic.config(WIDTH, HEIGHT, 20.0, PARAMS["n_features"], 2)
+    cam = {"fx": float(scene.K[0, 0]), "fy": float(scene.K[1, 1]),
+           "cx": float(scene.K[0, 2]), "cy": float(scene.K[1, 2])}
+    cfg.update(Camera_l=dict(cam), Camera_r=dict(cam))
+    sys_ = system.VSlamSystem(ConfigFile.from_dict(cfg), **SYS_CAPS,
+                              tracker_params=tracker.TrackerParams(**PARAMS), device=device)
+    sys_.tracker.velocity = scene.velocities[0].astype(np.float32)
+    return sys_
+
+
+def _run_mono(sys_, frames, bins):
+    """track_mono_imu over the frames; returns (trajectory, the landmark
+    count of each mono triangulation, the first being the init's)."""
+    found = sys_.mapper.find_new_points
+    counts = []
+
+    def counted(kf_slot, mono=False):
+        ids = found(kf_slot, mono=mono)
+        counts.append(len(ids))
+        return ids
+
+    sys_.mapper.find_new_points = counted
+    for f, fr in enumerate(frames):
+        sys_.track_mono_imu(fr, imu=bins[f])
+    sys_.exit()
+    return sys_.trajectory(), counts
+
+
+def phase_mono() -> int:
+    scene = synthetic.make_scene(n_frames=MONO_FRAMES, **MONO_SCENE)
+    t0 = time.perf_counter()
+    imgs = [scene.render(f) for f in range(MONO_FRAMES)]
+    render_s = time.perf_counter() - t0
+    bins = datasets.bin_imu_per_frame(scene.imu, scene.times)
+    frames = [torch.from_numpy(i).to("cuda") for i in imgs]
+    torch.cuda.synchronize()
+    sys_ = _mono_system(scene, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with _plain_calls() as plain_devices:
+        patches.LAUNCHES = 0
+        t0 = time.perf_counter()
+        poses, tri = _run_mono(sys_, frames, bins)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = patches.LAUNCHES
+    trk = sys_.tracker
+    if not trk.initialized or poses.shape != (MONO_FRAMES, 4, 4) or not np.isfinite(poses).all():
+        raise AssertionError(f"mono: initialized {trk.initialized}, trajectory {poses.shape}")
+    init_frame = int(sys_.world.kf_frame_idx[trk.bootstrap_slots[-1]])
+    tracked = MONO_FRAMES - 1 - init_frame
+    want = len(trk.bootstrap_slots) + tracked
+    ate = trajectory.ate_rmse(poses, scene.poses_c2w[:MONO_FRAMES], align=False)
+    repeat, _ = _run_mono(_mono_system(scene, "cuda"), frames, bins)
+    st = trk.metrics.summary()
+    say("mono", frames=MONO_FRAMES, fps=MONO_FRAMES / run_s, run_s=run_s, render_s=render_s,
+        frame_p50_ms=st["track"]["p50_ms"], frame_p90_ms=st["track"]["p90_ms"],
+        bootstrap_views=len(trk.bootstrap_slots), bootstrap_gates=len(trk.gate_slots),
+        init_frame=init_frame, init_landmarks=tri[0], triangulations=len(tri),
+        keyframes=len(trk.new_kf_slots), landmarks=sys_.world.n_landmarks, ate_m=ate,
+        extract_windows_launches=launches, want_launches=want, tracked_frames=tracked,
+        plain_calls_on_card=len(plain_devices), relocalizations=trk.counters.get("relocalizations"),
+        peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
+        repeat_bit_identical=bool(np.array_equal(poses, repeat)))
+    if launches != want or plain_devices:
+        raise AssertionError(f"mono: {launches} launches, want {want}; {len(plain_devices)} plain")
+    if not ate <= ATE_GATE_M:
+        raise AssertionError(f"mono ATE {ate} m > {ATE_GATE_M} m")
+    if not np.array_equal(poses, repeat):
+        raise AssertionError("a second mono run on the card gave another trajectory")
+
+    n = MONO_CPU_FRAMES
+    g, c = _mono_system(scene, "cuda"), _mono_system(scene, "cpu")
+    pg, _ = _run_mono(g, frames[:n], bins)
+    pc, _ = _run_mono(c, [torch.from_numpy(i) for i in imgs[:n]], bins)
+    same = (g.tracker.bootstrap_slots == c.tracker.bootstrap_slots
+            and g.tracker.new_kf_slots == c.tracker.new_kf_slots)
+    dt, ang = _pose_diff(pg, pc)
+    say("mono_card_vs_cpu", frames=n, keyframes=g.tracker.new_kf_slots,
+        bootstrap_slots=g.tracker.bootstrap_slots, same_slots=same,
+        landmarks_card=g.world.n_landmarks, landmarks_cpu=c.world.n_landmarks,
+        max_dt_m=float(dt.max()), max_drot_rad=float(ang.max()))
+    if not same or dt.max() > POSE_TOL_M or ang.max() > POSE_TOL_RAD:
+        raise AssertionError(f"mono card vs CPU: slots {same}, {dt.max()} m, {ang.max()} rad")
     return launches
+
+
+def _recording_retrieve():
+    """Wrap reloc.retrieve to keep each call's arguments and result."""
+    calls = []
+    fn = reloc.retrieve
+
+    def run(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    reloc.retrieve = run
+    return calls, fn
+
+
+def phase_recovery() -> int:
+    """tests/test_tracking.py's relocalization and re-seed sequences at the
+    bench configuration on the card."""
+    scene = synthetic.make_scene(n_frames=8, n_points=900, width=WIDTH, height=HEIGHT, fps=20.0,
+                                 seed=SEED)
+    black = torch.zeros((2, HEIGHT, WIDTH), device="cuda")
+    pairs = [torch.from_numpy(np.stack([scene.render(f), scene.render(f, right=True)])).cuda()
+             for f in range(8)]
+    calls, retrieve = _recording_retrieve()
+    try:
+        with _plain_calls() as plain_devices:
+            patches.LAUNCHES = 0
+            t0 = time.perf_counter()
+            trk, poses = _run_tracker(scene, pairs + [black] * 6 + pairs, "cuda")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = patches.LAUNCHES
+    finally:
+        reloc.retrieve = retrieve
+    errs = np.linalg.norm(poses[-3:, :3, 3] - scene.poses_c2w[5:8, :3, 3], axis=1)
+    accepted = [c for c in calls if c[2][0] >= 0]
+    one = {}
+    if accepted:
+        args, kwargs, _ = accepted[0]
+        t0 = time.perf_counter()
+        reloc.retrieve(*args, **kwargs)
+        one = {"retrieve_wall_ms": (time.perf_counter() - t0) * 1e3,
+               "retrieve": _profile_counts(lambda: (reloc.retrieve(*args, **kwargs), torch.cuda.synchronize()))}
+    say("relocalization", frames=len(poses), run_s=run_s, relocalizations=trk.counters.get("relocalizations"),
+        retrievals=[{"slot": c[2][0], "votes": c[2][1]} for c in calls], tail_err_m=errs.tolist(),
+        n_inliers_last=trk.last_stats["n_inliers"], extract_windows_launches=launches,
+        plain_calls_on_card=len(plain_devices), **one)
+    if trk.counters.get("relocalizations") != 1 or not errs.max() < RECOVERY_GATE_M:
+        raise AssertionError(f"relocalization: {trk.counters.get('relocalizations')}, tail {errs}")
+    if launches != len(poses) or plain_devices:
+        raise AssertionError(f"relocalization: {launches} launches for {len(poses)} frames")
+
+    s1 = synthetic.make_scene(n_frames=6, n_points=900, width=WIDTH, height=HEIGHT, fps=20.0, seed=SEED)
+    s2 = synthetic.make_scene(n_frames=10, n_points=900, width=WIDTH, height=HEIGHT, fps=20.0, seed=23)
+    seq = [torch.from_numpy(np.stack([s.render(f), s.render(f, right=True)])).cuda()
+           for s, n in ((s1, 6), (s2, 10)) for f in range(n)]
+    seq = seq[:6] + [black] * 3 + seq[6:]
+    reseeds = []
+    world = map_state.WorldMap(**WORLD, device="cuda")
+    trk = tracker.StereoTracker(s1.K.astype(np.float32), s1.baseline, WIDTH, HEIGHT, world,
+                                tracker.TrackerParams(**PARAMS), device="cuda")
+    insert = trk._insert_keyframe
+
+    def logged(frame_idx, *args, reseed=False, **kwargs):
+        if reseed:
+            reseeds.append(frame_idx)
+        return insert(frame_idx, *args, reseed=reseed, **kwargs)
+
+    trk._insert_keyframe = logged
+    for fr in seq:
+        trk.track(fr)
+    poses = trk.trajectory()
+    rec0 = 6 + 3 + 6
+    est = np.linalg.inv(poses[rec0]) @ poses[-1]
+    gt = np.linalg.inv(s2.poses_c2w[rec0 - 9]) @ s2.poses_c2w[9]
+    rel_err = float(np.linalg.norm(est[:3, 3] - gt[:3, 3]))
+    say("reseed", frames=len(seq), reseed_frames=reseeds,
+        relocalizations=trk.counters.get("relocalizations"), rel_err_m=rel_err,
+        n_inliers_last=trk.last_stats["n_inliers"], keyframes=len(trk.new_kf_slots))
+    if not reseeds or not rel_err < RECOVERY_GATE_M:
+        raise AssertionError(f"re-seed: {reseeds}, relative error {rel_err} m")
+    return launches
+
+
+def phase_global_ba(sys_, scene):
+    """VSlamSystem.global_ba after the 80-frame run, then the map-scale
+    corridor map."""
+    m = sys_.mapper
+    gt = scene.poses_c2w[:SYS_FRAMES]
+    ate0 = trajectory.ate_rmse(sys_.trajectory(), gt, align=False)
+    i1, i2 = m.counters.get("lm_iters_round1"), m.counters.get("lm_iters_round2")
+    t0 = time.perf_counter()
+    r = sys_.global_ba()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ate1 = trajectory.ate_rmse(sys_.trajectory(), gt, align=False)
+    iters = [m.counters.get("lm_iters_round1") - i1, m.counters.get("lm_iters_round2") - i2]
+    prof = _profile_counts(lambda: (m.run_global(), torch.cuda.synchronize()))
+    say("global_ba", keyframes=len(r["window"]), wall_s=wall, lm_iters=iters, error=r["error"],
+        ate_before_m=ate0, ate_after_m=ate1, second_run=prof)
+    if not (np.isfinite(r["error"]) and ate1 <= ATE_GATE_M):
+        raise AssertionError(f"global BA: error {r['error']}, ATE {ate0} -> {ate1} m")
+
+    world, c = synthetic.corridor_world(MAP_KF, MAP_LM, PARAMS["n_features"], device="cuda")
+    rng = np.random.default_rng(1)
+    drift = np.cumsum(rng.normal(0, 0.004, (MAP_KF, 3)), axis=0).astype(np.float32)
+    drift[0] = 0.0
+    pert = c["poses"].copy()
+    pert[:, :3, 3] += drift
+    world.arrays.kf_pose.copy_(torch.from_numpy(pert))
+    world.kf_poses_host[:] = pert
+    mapper = local_mapper.LocalMapper(
+        world, c["K"], c["baseline"], local_mapper.LocalMapperConfig(iters_round1=3, iters_round2=5)
+    )
+    solve = local_mapper.schur.local_ba_two_rounds
+    problems = []
+
+    def recording(p, *args, **kwargs):
+        problems.append((p, kwargs.get("n_slabs", 1)))
+        return solve(p, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    local_mapper.schur.local_ba_two_rounds = recording
+    try:
+        t0 = time.perf_counter()
+        r = mapper.run_global(max_landmarks=1 << 17)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        local_mapper.schur.local_ba_two_rounds = solve
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n_obs = int((c["obs_lm"] >= 0).sum())
+    new = world.kf_poses_host[:MAP_KF]
+
+    def rel_err(ps):
+        d = np.linalg.inv(ps[:-5]) @ ps[5:]
+        dg = np.linalg.inv(c["poses"][:-5]) @ c["poses"][5:]
+        return float(np.mean(np.linalg.norm(d[:, :3, 3] - dg[:, :3, 3], axis=1)))
+
+    p, n_slabs = problems[-1]
+    it = _profile_counts(lambda: (schur.local_ba(p, iters=1, n_slabs=n_slabs), torch.cuda.synchronize()),
+                         top=8)
+    say("global_ba_map_scale", keyframes=MAP_KF, landmarks=MAP_LM, obs=n_obs,
+        landmark_slots=int(p.pts.shape[0]), obs_rows=int(p.obs_kf.shape[0]), n_slabs=n_slabs,
+        wall_s=wall, peak_mem_mb=peak_mb, error=r["error"], error_per_obs=r["error"] / n_obs,
+        lm_iters=[mapper.counters.get("lm_iters_round1"), mapper.counters.get("lm_iters_round2")],
+        rel_err_before=rel_err(pert), rel_err_after=rel_err(new),
+        one_iteration_with_error=it)
+    if not (r is not None and len(r["window"]) == MAP_KF and n_slabs == MAP_SLABS
+            and np.isfinite(r["error"]) and np.isfinite(new).all()):
+        raise AssertionError(f"map-scale global BA: slabs {n_slabs}, result {r}")
+    if not (r["error"] < 0.01 * n_obs and rel_err(new) < 0.7 * rel_err(pert)):
+        raise AssertionError(f"map-scale global BA: error {r['error']} for {n_obs} obs, "
+                             f"relative error {rel_err(pert)} -> {rel_err(new)}")
 
 
 def main() -> int:
@@ -709,19 +1083,23 @@ def main() -> int:
                                  fps=20.0, seed=SEED)
     t = phase_kernels(scene, torch.device("cuda"), smi)
     t_kitti = phase_kernels_kitti(torch.device("cuda"), smi)
+    t_mono = phase_kernels_mono(torch.device("cuda"), smi)
     launches_trk, pairs, ate_trk = phase_main_path(scene)
     phase_card_vs_cpu(scene, pairs)
     sys_scene = synthetic.make_scene(n_frames=SYS_FRAMES, n_points=900, width=WIDTH,
                                      height=HEIGHT, fps=20.0, seed=SEED)
     launches, sys_pairs, window, sys_, sync_fps = phase_system(sys_scene, ate_trk)
     phase_ba(window, sys_)
+    phase_global_ba(sys_, sys_scene)
     del sys_, window
     phase_system_card_vs_cpu(sys_scene, sys_pairs)
     launches_async = phase_async(sys_scene, sys_pairs, sync_fps)
     phase_system_card_vs_cpu(sys_scene, sys_pairs, "async_card_vs_cpu", async_ba=True)
     bins = datasets.bin_imu_per_frame(sys_scene.imu, sys_scene.times)
     launches_imu = phase_imu(sys_scene, sys_pairs, bins)
-    launches_kitti = phase_driver()
+    launches_kitti, launches_driver_mono = phase_driver()
+    launches_mono = phase_mono()
+    launches_recovery = phase_recovery()
     report = {"kernels": [{
         "name": "extract_windows",
         "route": "cuda",
@@ -730,7 +1108,8 @@ def main() -> int:
         "launches": launches,
         "launches_by_phase": {"tracker": launches_trk, "system": launches,
                               "async_system": launches_async, "stereo_imu": launches_imu,
-                              "kitti_driver": launches_kitti},
+                              "kitti_driver": launches_kitti, "mono_driver": launches_driver_mono,
+                              "mono_system": launches_mono, "relocalization": launches_recovery},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],
@@ -740,9 +1119,9 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": "bytes",
         "library_ms": t["library_ms"],
-        "kitti_table": {k: t_kitti[k] for k in (
+        **{f"{name}_table": {k: tab[k] for k in (
             "max_abs_err", "launches_per_frame", "device_ms", "host_ms_per_call", "plain_ms",
-            "bound_ms", "library_ms")},
+            "bound_ms", "library_ms")} for name, tab in (("kitti", t_kitti), ("mono", t_mono))},
     }]}
     print(smi)
     print(json.dumps(report))

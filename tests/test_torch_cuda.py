@@ -2,8 +2,9 @@
 against their plain PyTorch versions, a short tracker run and a short
 VSlamSystem run on the card against the same runs on the CPU, the local
 BA's bit-reproducibility on the card, the async mapper's worker thread and
-side stream against the sync mapper, and a short STEREO_IMU run. They skip
-without a card. This file
+side stream against the sync mapper, a short STEREO_IMU run, a short
+mono-inertial run, relocalization retrieval and the slab-chunked Schur
+reduction. They skip without a card. This file
 imports no jax (the GPU machine has none); run it there with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from vslam_torch.geometry import se3
-from vslam_torch.models import map_state, system, tracker
+from vslam_torch.models import map_state, reloc, system, tracker
 from vslam_torch.ops import extract, patches, pyramid, schur
 from vslam_torch.utils import synthetic
 from vslam_torch.utils.config import ConfigFile
@@ -290,3 +291,73 @@ def test_stereo_imu_on_card_matches_cpu(dev):
     (sg, pg), (sc, pc) = runs["cuda"], runs["cpu"]
     assert sg.tracker.imu_cfg is not None and sg.tracker.new_kf_slots == sc.tracker.new_kf_slots
     np.testing.assert_allclose(pg, pc, atol=1e-3, rtol=0)
+
+
+def test_mono_on_card_matches_cpu(dev):
+    """Twelve frames of the lateral mono scene (tests/test_system.py's,
+    1024 features) through VSlamSystem in slamMode 2 on the card and on the
+    CPU: the same bootstrap and keyframe slots and landmark count, one
+    extract_windows launch per bootstrap view and per tracked frame, poses
+    within 1e-3."""
+    from vslam_torch.utils import datasets
+
+    scene = synthetic.make_scene(n_frames=12, n_points=500, width=320, height=240, fps=10.0, seed=7,
+                                 texture="distinct", motion="lateral")
+    bins = datasets.bin_imu_per_frame(scene.imu, scene.times)
+    params = tracker.TrackerParams(n_features=1024, n_levels=4, active_size=2048, kf_min_stereo=60)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        sys_ = system.VSlamSystem(_small_system_conf(2), lm_capacity=8192, kf_capacity=64,
+                                  tracker_params=params, device=d)
+        sys_.tracker.velocity = scene.velocities[0].astype(np.float32)
+        n0 = patches.LAUNCHES
+        for f in range(12):
+            sys_.track_mono_imu(scene.render(f), imu=bins[f])
+        sys_.exit()
+        runs[d.type] = (sys_, sys_.trajectory(), patches.LAUNCHES - n0)
+    (sg, pg, launches), (sc, pc, cpu_launches) = runs["cuda"], runs["cpu"]
+    trk = sg.tracker
+    assert isinstance(trk, tracker.MonoTracker) and trk.initialized and cpu_launches == 0
+    tracked = 12 - 1 - int(sg.world.kf_frame_idx[trk.bootstrap_slots[-1]])
+    assert launches == len(trk.bootstrap_slots) + tracked
+    assert trk.bootstrap_slots == sc.tracker.bootstrap_slots
+    assert trk.new_kf_slots == sc.tracker.new_kf_slots
+    assert sg.world.n_landmarks == sc.world.n_landmarks
+    np.testing.assert_allclose(pg, pc, atol=1e-3, rtol=0)
+
+
+def test_retrieve_on_card_matches_cpu(dev):
+    """reloc.retrieve of a mapped view (frame 2 of an 8-frame stereo run
+    on the CPU) against the map copied to the card: the same keyframe and
+    votes, the verified pose within 1e-4."""
+    import dataclasses
+
+    scene = synthetic.make_scene(n_frames=8, n_points=400, width=320, height=240, fps=10.0, seed=7)
+    params = tracker.TrackerParams(n_features=512, n_levels=4, active_size=1024, kf_min_stereo=60)
+    world = map_state.WorldMap(lm_capacity=8192, kf_capacity=64, keys_per_kf=512, device="cpu")
+    trk = tracker.StereoTracker(scene.K, scene.baseline, 320, 240, world, params, device="cpu")
+    for f in range(8):
+        trk.track(scene.render(f), scene.render(f, right=True))
+    trk.flush()
+    img = torch.from_numpy(scene.render(2)[None].astype(np.float32))
+    kw = dict(n_levels=4, scale=1.2, total=512)
+    cpu = reloc.retrieve(world, extract.extract_batch(img, **kw).select(0), world.n_keyframes, scene.K)
+    world.arrays = map_state.MapArrays(**{f.name: getattr(world.arrays, f.name).to(dev)
+                                          for f in dataclasses.fields(world.arrays)})
+    card = reloc.retrieve(world, extract.extract_batch(img.to(dev), **kw).select(0), world.n_keyframes,
+                          scene.K)
+    assert card[0] == cpu[0] >= 0 and card[1] == cpu[1] >= reloc.MIN_VOTES
+    np.testing.assert_allclose(card[2], cpu[2], atol=1e-4, rtol=0)
+
+
+def test_slabbed_schur_on_card(dev):
+    """The 2-round BA with the reduction in 4 landmark slabs on the card:
+    bit-identical when repeated, within 5e-4 of the unslabbed solve
+    (tests/test_ba.py:141-147), the same kill mask."""
+    p = _on(_ba_problem(), dev)
+    a = schur.local_ba_two_rounds(p, n_slabs=4)
+    b = schur.local_ba_two_rounds(p, n_slabs=4)
+    c = schur.local_ba_two_rounds(p)
+    assert torch.equal(a[0].poses, b[0].poses) and torch.equal(a[2], b[2])
+    np.testing.assert_allclose(a[0].poses.cpu().numpy(), c[0].poses.cpu().numpy(), atol=5e-4, rtol=0)
+    assert torch.equal(a[2], c[2])

@@ -438,44 +438,39 @@ def test_trajectory_io_matches_jax(tmp_path, scene):
 
 
 def test_unported_paths_raise(runs, tmp_path):
-    """MONOCULAR (sync or async), shards and loop closure at construction;
-    global BA; mono triangulation on every mapper entry (sync, staged and
-    async); the driver's mono and loop scenes; a mesh, observation-row
-    sharding and slabs in the BA."""
+    """Shards and loop closure raise at construction, the driver's loop
+    scene, a mesh and observation-row sharding in the BA raise; MONOCULAR
+    (sync or async) builds a MonoTracker; global BA and mono triangulation
+    run on every mapper entry (sync, staged and async) of the stereo map."""
     from vslam_torch import run_synthetic
 
     conf = TConfig.from_dict(_config())
     params = ttr.TrackerParams(**PARAMS)
-    for kw, what in (
-        ({"mode": tsys.SlamMode.MONOCULAR}, "A9"),
-        ({"mode": tsys.SlamMode.MONOCULAR, "async_ba": True}, "A9"),
-        ({"shards": 2}, "A12"), ({"shards": "auto"}, "A12"), ({"loop_closure": True}, "A10"),
-    ):
+    for kw, what in (({"shards": 2}, "A12"), ({"shards": "auto"}, "A12"), ({"loop_closure": True}, "A10")):
         with pytest.raises(NotImplementedError, match=what):
             tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu", **kw)
+    for async_ba in (False, True):
+        mono = tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu",
+                                mode=tsys.SlamMode.MONOCULAR, async_ba=async_ba)
+        assert isinstance(mono.tracker, ttr.MonoTracker) and mono.tracker.baseline == 0.0
     ts = runs["torch"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        ts.global_ba()
     m = ts.mapper
-    with pytest.raises(NotImplementedError, match="A9"):
-        m.find_new_points(1, mono=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        m.run_global()
-    for call, what in (
-        (lambda: m.run(1, mono=True), "A9"), (lambda: m.run_async(1, mono=True), "A9"),
-        (lambda: m.run_async_staged(1, mono=True), "A9"),
-        (lambda: run_synthetic.main(["--device", "cpu", "--scene", "mono"]), "A9"),
-        (lambda: run_synthetic.main(["--device", "cpu", "--scene", "loop"]), "A10"),
-    ):
-        with pytest.raises(NotImplementedError, match=what):
-            call()
+    n_kf = ts.world.n_keyframes
+    r = ts.global_ba()
+    assert r["window"] == list(range(n_kf)) and r["kf_slot"] == n_kf - 1 and np.isfinite(r["error"])
+    for call in (lambda: m.run(n_kf - 1, mono=True), lambda: m.run_async(n_kf - 1, mono=True),
+                 lambda: m.finish(m.run_async_staged(n_kf - 1, mono=True))):
+        assert call()["kf_slot"] == n_kf - 1
+    assert isinstance(m.find_new_points(n_kf - 1, mono=True), np.ndarray)
+    with pytest.raises(NotImplementedError, match="A10"):
+        run_synthetic.main(["--device", "cpu", "--scene", "loop"])
     with pytest.raises(NotImplementedError, match="A12"):
         tlm.LocalMapper(ts.world, np.eye(3), BL, mesh=object())
     p = tsch.BAProblem(*[torch.zeros(1)] * len(tsch.BAProblem._fields))
     with pytest.raises(NotImplementedError, match="A12"):
         tsch.local_ba(p, axis_name="ba")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tsch.local_ba_two_rounds(p, n_slabs=4)
+    with pytest.raises(NotImplementedError, match="A12"):
+        tsch.local_ba_two_rounds(p, n_slabs=4, axis_name="ba")
     # the trajectory files the facade writes
     ts.save_trajectory(str(tmp_path / "traj.txt"), times=np.arange(N_FRAMES) * 0.1)
     assert np.loadtxt(tmp_path / "traj.txt").shape == (N_FRAMES, 12)
@@ -484,9 +479,9 @@ def test_unported_paths_raise(runs, tmp_path):
 
 def test_facade_never_imports_jax():
     """``vslam_torch.models.system`` and ``vslam_torch.run_synthetic``, an
-    8-frame CPU run with the sync local mapper, 8 frames with the async
-    one and 4 STEREO_IMU frames, in a fresh interpreter where importing
-    jax fails loudly."""
+    8-frame CPU run with the sync local mapper and a global BA after it,
+    8 frames with the async one, 4 STEREO_IMU frames and 8 mono-inertial
+    frames, in a fresh interpreter where importing jax fails loudly."""
     code = textwrap.dedent(
         """
         import importlib.abc, sys
@@ -512,20 +507,26 @@ def test_facade_never_imports_jax():
         # n_features >= the mapper's SPAWN_TRI budget (512), as in vslam_tpu
         p = tracker.TrackerParams(n_features=512, n_levels=2, active_size=1024, spawn_per_kf=128, kf_every=2)
         counts = []
-        for mode, async_ba, n in ((1, False, 8), (1, True, 8), (0, False, 4)):
+        for mode, async_ba, n in ((1, False, 8), (1, True, 8), (0, False, 4), (2, False, 8)):
             conf = ConfigFile.from_dict({"slamMode": mode, **rig})
             sys_ = system.VSlamSystem(conf, async_ba=async_ba, lm_capacity=2048, kf_capacity=16,
                                       tracker_params=p, device="cpu")
-            if mode == 0:
+            if mode != 1:
                 sys_._gravity_set = True
                 sys_.tracker.set_gravity(synthetic.GRAVITY_W)
                 sys_.tracker.velocity = s.velocities[0].astype(np.float32)
             for f in range(n):
-                sys_.track_stereo(s.render(f), s.render(f, right=True), imu=bins[f])
+                if mode == 2:
+                    sys_.track_mono_imu(s.render(f), imu=bins[f])
+                else:
+                    sys_.track_stereo(s.render(f), s.render(f, right=True), imu=bins[f])
             sys_.exit()
             assert sys_.trajectory().shape == (n, 4, 4) and sys_._pending_ba is None
             counts.append(sys_.mapper.ba_count)
-        assert counts[0] >= 1 and counts[1] >= 1
+            if mode == 1 and not async_ba:
+                g = sys_.global_ba()
+                assert g["window"] == list(range(sys_.world.n_keyframes))
+        assert counts[0] >= 2 and counts[1] >= 1 and sys_.tracker.initialized
         assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
         print("NO_JAX_OK", counts)
         """

@@ -206,9 +206,11 @@ def test_world_map_allocator_matches_jax():
 
 
 def test_unported_paths_raise(scene):
-    """Monocular tracking (with and without IMU rows, on a stereo-inertial
-    tracker too), relocalization and the debug hook raise; a tracker on
-    another device than its map is refused."""
+    """A StereoTracker given no right image (with and without IMU rows, on
+    a stereo-inertial tracker too) is refused and points to MonoTracker,
+    which takes the same single image; relocalization on an empty map
+    finds nothing (the caller then re-seeds); the debug hook raises; a
+    tracker on another device than its map is refused."""
     imu_cfg = ttr.ImuConfig(
         gyro_noise=1.7e-4, accel_noise=2e-3, gyro_walk=1.9e-5, accel_walk=3e-3, hz=200.0,
         T_bc=np.eye(4, dtype=np.float32), gravity_w=np.array([0.0, 0.0, -9.81], np.float32),
@@ -217,15 +219,20 @@ def test_unported_paths_raise(scene):
         scene.K, scene.baseline, 320, 240, tms.WorldMap(**WORLD, device="cpu"),
         ttr.TrackerParams(**PARAMS), imu_cfg=imu_cfg, device="cpu",
     )
-    with pytest.raises(NotImplementedError, match="monocular"):
+    with pytest.raises(ValueError, match="MonoTracker"):
         ti.track(scene.frames[0][0], imu=np.zeros((3, 7), np.float32))
     tt = _torch_tracker(scene)
-    with pytest.raises(NotImplementedError, match="monocular"):
+    with pytest.raises(ValueError, match="MonoTracker"):
         tt.track(scene.frames[0][0], imu=np.zeros((3, 7), np.float32))
-    with pytest.raises(NotImplementedError, match="monocular"):
+    with pytest.raises(ValueError, match="MonoTracker"):
         tt.track(scene.frames[0][0])
-    with pytest.raises(NotImplementedError, match="relocalization"):
-        tt._relocalize(5, {})
+    assert tt._relocalize(5, {}) is False and tt.counters.get("relocalizations") == 0
+    tm = ttr.MonoTracker(scene.K, 320, 240, tms.WorldMap(**WORLD, device="cpu"),
+                         ttr.TrackerParams(**PARAMS), imu_cfg=imu_cfg, device="cpu")
+    tm.track(scene.frames[0][0])
+    assert tm.bootstrap_slots == tm.gate_slots == [0] and tm.world.n_keyframes == 1
+    with pytest.raises(ValueError, match="one image"):
+        tm.track(np.stack(scene.frames[1]))
     with pytest.raises(NotImplementedError, match="debug hook"):
         tt.debug_hook = print
     with pytest.raises(ValueError, match="device"):

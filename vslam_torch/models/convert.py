@@ -41,12 +41,16 @@ def tracker_state_from_jax(state: dict, host: dict, device) -> tuple[dict, dict]
     """A vslam_tpu tracker's device state (``StereoTracker._state``: pose,
     prev_pose, vel, bias, active{ids, pos, desc, maxdist, mindist, valid},
     miss_age) and host bookkeeping (active_ids, miss_age, frame_records,
-    new_kf_slots), as numpy -> (the port's state dict on `device`, host
-    bookkeeping with the port's dtypes)."""
-    state_t = {
-        k: _tensor(state[k], device) for k in ("pose", "prev_pose", "vel", "bias", "miss_age")
-    }
-    state_t["active"] = {k: _tensor(v, device) for k, v in state["active"].items()}
+    new_kf_slots; for a ``MonoTracker`` also initialized, bootstrap_slots,
+    gate_slots, needs_init_triangulation), as numpy -> (the port's state
+    dict on `device`, host bookkeeping with the port's dtypes). `state` may
+    be None: a mono tracker still in its bootstrap has no device state."""
+    state_t = None
+    if state is not None:
+        state_t = {
+            k: _tensor(state[k], device) for k in ("pose", "prev_pose", "vel", "bias", "miss_age")
+        }
+        state_t["active"] = {k: _tensor(v, device) for k, v in state["active"].items()}
     host_t = {
         "active_ids": np.asarray(host["active_ids"], np.int64).copy(),
         "miss_age": np.asarray(host["miss_age"], np.int64).copy(),
@@ -55,6 +59,12 @@ def tracker_state_from_jax(state: dict, host: dict, device) -> tuple[dict, dict]
         ],
         "new_kf_slots": [int(s) for s in host["new_kf_slots"]],
     }
+    for k in ("bootstrap_slots", "gate_slots"):
+        if k in host:
+            host_t[k] = [int(s) for s in host[k]]
+    for k in ("initialized", "needs_init_triangulation"):
+        if k in host:
+            host_t[k] = bool(host[k])
     return state_t, host_t
 
 

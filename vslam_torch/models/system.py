@@ -4,10 +4,14 @@ cameras, tracker, map and local mapper; ``track_stereo`` per frame, with
 the local mapper run at every keyframe; trajectories saved in the
 reference's KITTI 3x4 format (src/System.cpp:87-124).
 
-Ported: ``SlamMode.STEREO`` and ``SlamMode.STEREO_IMU`` (IMU rows with
-absolute timestamps, the one-time gravity init), the synchronous local BA
-and ``async_ba=True``. The async BA keeps the JAX package's schedule
-(which decides which map each tracking step sees): phase A at the keyframe,
+Ported: ``SlamMode.STEREO``, ``SlamMode.STEREO_IMU`` (IMU rows with
+absolute timestamps, the one-time gravity init) and ``SlamMode.MONOCULAR``
+(mono + IMU through ``track_mono_imu``: the tracker's bootstrap, the
+one-time init triangulation, then mono triangulation at every keyframe and
+no window BA), the synchronous local BA, ``async_ba=True`` and
+``global_ba`` (one BA over the whole map). The async BA keeps the JAX
+package's schedule (which decides which map each tracking step sees):
+phase A at the keyframe,
 the solve on the mapper's worker thread, the write-back behind the second
 tracked frame after it, the consume (early landmark publication, then
 re-anchoring) before the third, at a fixed latency with
@@ -15,8 +19,8 @@ re-anchoring) before the third, at a fixed latency with
 ``ba_max_latency_frames``) without it. Everything runs on ``device`` (the
 GPU unless the caller asks for the CPU).
 
-Not ported, each raising NotImplementedError: MONOCULAR (ROADMAP A9),
-``shards`` (A12), ``loop_closure=True`` (A10) and ``global_ba`` (A11).
+Not ported, each raising NotImplementedError: ``shards`` (ROADMAP A12)
+and ``loop_closure=True`` (A10).
 """
 
 from __future__ import annotations
@@ -54,8 +58,6 @@ class VSlamSystem:
         unrectified config."""
         self.conf = conf
         self.mode = mode if mode is not None else conf.slam_mode
-        if self.mode not in (SlamMode.STEREO, SlamMode.STEREO_IMU):
-            _not_ported(f"SlamMode {self.mode.name} (the mono path, ROADMAP A9)")
         if shards is not None and shards != 1:
             _not_ported("shards (the mesh-sharded local BA, ROADMAP A12)")
         if loop_closure:
@@ -78,11 +80,11 @@ class VSlamSystem:
             keys_per_kf=params.n_features, device=self.device,
         )
 
-        # IMU config (STEREO_IMU; reference IMU YAML block + T_bc1,
-        # config/config_MH_01.yaml:18-24, 112-115)
+        # IMU config (STEREO_IMU / MONO_IMU; reference IMU YAML block +
+        # T_bc1, config/config_MH_01.yaml:18-24, 112-115)
         imu_cfg = None
         self._imu_hz = 200.0
-        if self.mode == SlamMode.STEREO_IMU:
+        if self.mode in (SlamMode.STEREO_IMU, SlamMode.MONO_IMU):
             hz = float(conf.get("IMU", "Hz", default=200))
             self._imu_hz = hz
             T_bc = conf.get_matrix("T_bc1", default=None)
@@ -100,10 +102,16 @@ class VSlamSystem:
         self._last_imu_t: float | None = None
         self._gravity_set = False
 
-        self.tracker = tracker.StereoTracker(
-            K, self.rig.baseline, self.rig.width, self.rig.height, self.world, params,
-            imu_cfg=imu_cfg, device=self.device,
-        )
+        if self.mode == SlamMode.MONOCULAR:
+            self.tracker = tracker.MonoTracker(
+                K, self.rig.width, self.rig.height, self.world, params, imu_cfg=imu_cfg,
+                device=self.device,
+            )
+        else:
+            self.tracker = tracker.StereoTracker(
+                K, self.rig.baseline, self.rig.width, self.rig.height, self.world, params,
+                imu_cfg=imu_cfg, device=self.device,
+            )
         # optional explicit world gravity (config `IMU.gravity: [x, y, z]`):
         # the reference's init permutes the first accel sample's axes for
         # EuRoC's sensor mounting (src/VIOSlam.cpp:274); any other rig
@@ -231,16 +239,46 @@ class VSlamSystem:
         self._dispatch_ba(n_kf_before)
         return pose
 
+    def track_mono_imu(self, left, imu=None) -> np.ndarray:
+        """Process one monocular-inertial frame ((H, W) numpy array or
+        tensor; `imu` as for track_stereo); returns the (4, 4) cam-to-world
+        pose of the newest processed frame (reference TrackMonoIMU,
+        src/System.cpp:82-85). Hands the bootstrap's initial triangulation
+        to the mapper, then triangulates at every keyframe."""
+        if self._maps is not None:
+            left = cam.remap_bilinear(self._frame(left), self._maps[0])
+        imu = self._imu_to_dt_rows(imu) if imu is not None else None
+        if self._async:
+            self._consume_ba_results()
+        n_kf_before = len(self.tracker.new_kf_slots)
+        pose = self.tracker.track(left, imu=imu)
+        if getattr(self.tracker, "needs_init_triangulation", False):
+            ids = self.mapper.find_new_points(self.tracker.new_kf_slots[-1], mono=True)
+            self.tracker.add_active(ids)
+            self.tracker.needs_init_triangulation = False
+            self.tracker.last_kf_tracked = max(len(ids), 1)
+        else:
+            self._advance_ba()
+            self._dispatch_ba(n_kf_before, mono=True)
+        return pose
+
     def _advance_ba(self):
         if self._pending_ba is not None:
             self._pending_ba = self.mapper.advance(self._pending_ba)
 
-    def _dispatch_ba(self, n_kf_before: int):
+    def _dispatch_ba(self, n_kf_before: int, mono: bool = False):
         self._frame_count += 1
         if len(self.tracker.new_kf_slots) > n_kf_before:
             slot = self.tracker.new_kf_slots[-1]
             if slot > 0:  # BA needs at least 2 KFs
-                if self._async:
+                if mono:
+                    # no mono window BA (vslam_tpu system.py:340-355: a
+                    # projection-only window has no scale gauge and
+                    # amplified drift ~100x); keyframe mapping is
+                    # triangulation only, scale rides on the IMU solve
+                    self.tracker.add_active(self.mapper.find_new_points(slot, mono=True))
+                    self._try_loop_closure(slot)
+                elif self._async:
                     self._consume_ba_results(force=True)  # at most one BA in flight
                     self._pending_ba = self.mapper.run_async_staged(slot)
                     self._ba_dispatch_frame = self._frame_count
@@ -258,8 +296,15 @@ class VSlamSystem:
         self._consume_ba_results(force=True)
         self.mapper.close()
 
-    def global_ba(self):
-        _not_ported("global BA (global_ba / LocalMapper.run_global, ROADMAP A11)")
+    def global_ba(self) -> dict | None:
+        """Full-map refinement (LocalMapper.run_global): drains the
+        pipeline and the in-flight BA first, then re-anchors the tracker on
+        the refined newest keyframe so that tracking can go on."""
+        self.exit()
+        r = self.mapper.run_global()
+        if r is not None:
+            self.tracker.reanchor(r["kf_slot"], r["old_pose"], r["new_pose"])
+        return r
 
     # ------------------------------------------------------------------
     def trajectory(self) -> np.ndarray:

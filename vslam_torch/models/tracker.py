@@ -12,10 +12,12 @@ f+pipeline_depth were tracked, because that delay decides when keyframes
 fire and when new landmarks become matchable.
 
 Ported: stereo and stereo-inertial tracking (``imu_cfg``: IMU
-preintegration and the 15-dof visual-inertial solve on every frame).
-MonoTracker and the debug hook are not ported and raise; relocalization
-(lost-tracking recovery after ``reseed_after`` refused solves) raises
-NotImplementedError rather than silently turning into a reseed.
+preintegration and the 15-dof visual-inertial solve on every frame), the
+monocular-inertial :class:`MonoTracker` (IMU bootstrap, then the same frame
+step on one image), and lost-tracking recovery: after ``reseed_after``
+refused solves the tracker relocalizes on the old map (models/reloc.py)
+or, failing that, re-seeds a stereo map at the dead-reckoned pose. The
+debug hook is not ported and raises.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from vslam_torch.geometry import se3
-from vslam_torch.models import map_state
+from vslam_torch.models import map_state, reloc
 from vslam_torch.ops import extract, imu as imu_ops, lm, project_match, stereo_match
 from vslam_torch.utils import metrics as metrics_mod
 
@@ -51,8 +53,8 @@ class ImuConfig:
 
 @dataclasses.dataclass
 class TrackerParams:
-    """The stereo subset of vslam_tpu.models.tracker.TrackerParams (same
-    names, same defaults; see there for the measurements behind them)."""
+    """vslam_tpu.models.tracker.TrackerParams (same names, same defaults;
+    see there for the measurements behind them)."""
 
     n_features: int = 2048
     n_levels: int = 8
@@ -68,8 +70,16 @@ class TrackerParams:
     refine_radius: float = 4.0
     desc_thr: float = 100.0
     ratio: float = 0.8
+    # mono re-acquisition (reference src/FeatureTracker.cpp:1400,
+    # src/FeatureMatcher.cpp:442-447); None -> MonoTracker derives them: the
+    # schedule escalates to 1200 px, thresholds relaxed by +50 / +0.1
+    mono_radius_schedule: tuple | None = None
+    mono_first_frame_radius: float | None = None
+    mono_desc_thr: float | None = None
+    mono_ratio: float | None = None
     min_inliers: int = 50
     kf_min_stereo: int = 80
+    kf_min_mono: int = 80  # mono KF trigger (reference 1470-1484)
     kf_every: int = 5
     kf_critical_stereo: int | None = None  # None -> 4/5 of kf_min_stereo
     kf_tracked_ratio: float = 0.9
@@ -106,14 +116,33 @@ def _frontend(LR, fx, baseline, scale_factors, p: TrackerParams):
     return kl, _stereo(LR, kl, kr, fx, baseline, scale_factors, p)
 
 
+def _frontend_mono(img: torch.Tensor, p: TrackerParams) -> extract.Keys:
+    """Extraction only, on one (H, W) image (the mono bootstrap views)."""
+    return _extract(img[None], p).select(0)
+
+
 def _rot_angle(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
     """Geodesic angle of Ra^T Rb."""
     R = Ra.T @ Rb
     return torch.arccos(torch.clamp((torch.trace(R) - 1.0) * 0.5, -1.0, 1.0))
 
 
+def _no_stereo(keys: extract.Keys) -> dict:
+    """The stereo dict of a mono frame: nothing matched, no right x
+    (vslam_tpu/models/tracker.py:248-255)."""
+    N = keys.xy.shape[0]
+    dev = keys.xy.device
+    none = torch.zeros((N,), dtype=torch.bool, device=dev)
+    return {
+        "matched": none,
+        "close": none,
+        "depth": torch.zeros((N,), dtype=torch.float32, device=dev),
+        "est_right_x": torch.full((N,), -1.0, dtype=torch.float32, device=dev),
+    }
+
+
 def _track_step(
-    LR: torch.Tensor,  # (2, H, W) float32 left/right
+    LR: torch.Tensor,  # (2, H, W) float32 left/right, or (1, H, W) mono
     state: dict,
     radii: list,  # adaptive radius schedule (reference 1191-1233)
     refine_radius: float,
@@ -127,9 +156,11 @@ def _track_step(
     height: int,
     imu=None,
 ):
-    """One tracked stereo frame. Returns (new_state, outputs); outputs hold
-    what a keyframe insertion needs plus the packed f32 ``blob``
-    [pose 16 | vel 3 | bias 6 | stats 9 | miss_age A] the host reads.
+    """One tracked frame. Returns (new_state, outputs); outputs hold what a
+    keyframe insertion needs plus the packed f32 ``blob``
+    [pose 16 | vel 3 | bias 6 | stats 9 | miss_age A] the host reads. A
+    mono frame (`LR` of one image) has no stereo matching and no right-image
+    matching (reference TrackImageMonoIMU, src/FeatureTracker.cpp:1280-1495).
 
     `imu` (the STEREO_IMU path): (samples (K, 7) host array of [dt, gyro,
     accel] rows, gravity_w (3,), T_bc (4, 4), ImuParams). Every frame then
@@ -144,8 +175,13 @@ def _track_step(
     prev_prev = se3.orthonormalize(state["prev_pose"])
 
     keysb = _extract(LR, p)
-    keys, kr = keysb.select(0), keysb.select(1)
-    st = _stereo(LR, keys, kr, K[0, 0], baseline, scale_factors, p)
+    keys = keysb.select(0)
+    mono = LR.shape[0] == 1
+    if mono:
+        kr, st = None, _no_stereo(keys)
+    else:
+        kr = keysb.select(1)
+        st = _stereo(LR, keys, kr, K[0, 0], baseline, scale_factors, p)
 
     # constant-velocity prediction (reference updatePoses, 1699-1708)
     vel_T = pose_prev @ se3.inverse(prev_prev)
@@ -171,7 +207,7 @@ def _track_step(
     def attempt(T_base, v_base, radius, do_right):
         """Projection matching at `radius` + motion-only LM from T_base (two
         starts without IMU, the 15-dof solve with it); right-image matching
-        only in the refine pass."""
+        only in the refine pass of a stereo frame."""
         proj = project_match.predict_and_cull(
             T_base, active["pos"], active["valid"], K, baseline, width, height,
             active["maxdist"], active["mindist"], n_levels=n_levels,
@@ -187,7 +223,7 @@ def _track_step(
         obs_l = torch.stack(
             [keys.xy[safe, 0], keys.xy[safe, 1], st["est_right_x"][safe]], dim=-1
         )
-        if do_right:
+        if do_right and not mono:
             midx_r, _ = project_match.match_by_projection(
                 proj["pred_r"], proj["pred_oct"], active["desc"],
                 active["valid"] & proj["in_r"] & ~matched,
@@ -522,6 +558,17 @@ def _map_ages(targets: np.ndarray, layout: np.ndarray, ages: np.ndarray) -> np.n
     return out
 
 
+def sufficient_motion(
+    T_a: np.ndarray, T_b: np.ndarray, min_baseline: float = 0.1, min_angle_deg: float = 5.0
+) -> bool:
+    """Reference checkSufficientMovement (include/Conversions.h:112-137):
+    enough baseline OR rotation between two poses to attempt mono init."""
+    d = np.linalg.norm(T_a[:3, 3] - T_b[:3, 3])
+    R = T_a[:3, :3].T @ T_b[:3, :3]
+    angle = np.degrees(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
+    return d > min_baseline or angle > min_angle_deg
+
+
 class StereoTracker:
     """Host orchestration of the per-frame loop (reference TrackImage).
 
@@ -578,6 +625,7 @@ class StereoTracker:
         self._radii_first = [float(np.float32(p.first_frame_radius))] * len(p.radius_schedule)
         self._desc_thr = float(np.float32(p.desc_thr))
         self._ratio = float(np.float32(p.ratio))
+        self._mono = False
 
         self.frame_idx = 0
         self.pose = np.eye(4, dtype=np.float32)
@@ -682,14 +730,25 @@ class StereoTracker:
             self.counters.inc("frames")
             return self._track_frame(left, right, imu)
 
+    def _frames(self, left, right) -> torch.Tensor:
+        """The frame as a float32 (views, H, W) tensor on the device: 2
+        views for this tracker, 1 for a MonoTracker."""
+        if right is not None:
+            LR = self._to_device(np.stack([left, right]))
+        else:
+            LR = torch.as_tensor(left).to(self.device, torch.float32)
+            if LR.ndim == 2:
+                LR = LR[None]
+        if LR.shape[0] != (1 if self._mono else 2):
+            raise ValueError(
+                f"{type(self).__name__} tracks {'one image' if self._mono else 'stereo pairs'} "
+                f"per frame, got {LR.shape[0]} (monocular tracking is MonoTracker)"
+            )
+        return LR
+
     def _track_frame(self, left, right, imu=None):
         p = self.params
-        if right is None:
-            if getattr(left, "ndim", 2) != 3:
-                raise NotImplementedError("vslam_torch: monocular tracking is not ported yet")
-            LR = torch.as_tensor(left).to(self.device, torch.float32)
-        else:
-            LR = self._to_device(np.stack([left, right]))
+        LR = self._frames(left, right)
 
         if self.frame_idx == 0:
             kl, st = _frontend(LR, self.K[0, 0], self.baseline, self.scale_factors, p)
@@ -751,22 +810,32 @@ class StereoTracker:
             "lost": bool(blob[33] > 0.5),
         }
 
-        # lost-tracking recovery (vslam_tpu/models/tracker.py:1230-1259):
-        # relocalize on the old map, and re-seed the map only when that
-        # fails. Relocalization is not ported, so a due recovery raises; the
-        # re-seed keyframe comes with it.
+        # lost-tracking recovery (vslam_tpu/models/tracker.py:1230-1275;
+        # the reference has none). After `reseed_after` consecutive refused
+        # solves (the device's lost bit: inlier starvation or a jump
+        # refusal): relocalize on the old map, else (stereo only) re-seed a
+        # keyframe at the dead-reckoned pose whose spawns are uncapped. The
+        # extra spacing keeps a second recovery off frames tracked before
+        # the first one's landmarks went live.
         lost = self.last_stats["lost"]
         self.lost_streak = self.lost_streak + 1 if lost else 0
+        reseed = False
         recovery_due = (
             self.lost_streak >= p.reseed_after
             and frame_idx - self.last_kf_frame > p.pipeline_depth + p.reseed_after
         )
         if recovery_due:
-            self._relocalize(frame_idx, outputs)
-        if self._kf_decision(frame_idx, n_keys, n_inl, n_stereo_inl):
+            if self._relocalize(frame_idx, outputs):
+                return  # re-anchored on the old map; no keyframe this frame
+            reseed = not self._mono and n_stereo_keys >= p.kf_min_stereo
+        if reseed or self._kf_decision(frame_idx, n_keys, n_inl, n_stereo_inl):
             self._finish_kf_commit()
-            self._insert_keyframe(frame_idx, pose, outputs, layout, ages)
-            self.last_kf_tracked = n_inl
+            # a re-seed commits at once: recovery needs the fresh active set
+            # now, and its spawn count becomes the tracked baseline
+            n_used = self._insert_keyframe(
+                frame_idx, pose, outputs, layout, ages, reseed=reseed, defer=not reseed
+            )
+            self.last_kf_tracked = n_used if reseed else n_inl
             self.last_kf_frame = frame_idx
             self.lost_streak = 0
         else:
@@ -779,14 +848,48 @@ class StereoTracker:
             else:
                 self.miss_age = _map_ages(self.active_ids, layout, ages)
 
-    def _relocalize(self, frame_idx: int, outputs: dict):
-        """Global relocalization (vslam_tpu/models/reloc.py) is not ported.
-        It raises: returning False would silently turn the recovery into a
-        re-seed, which the reference does only when relocalization fails."""
-        raise NotImplementedError(
-            f"vslam_torch: tracking lost at frame {frame_idx} and relocalization "
-            "(models/reloc.py) is not ported yet"
+    def _relocalize(self, frame_idx: int, outputs: dict) -> bool:
+        """Global relocalization (models/reloc.py): retrieve the keyframe
+        whose descriptors best match this frame, verified by a PnP solve;
+        restart there with zero velocity and an active set reloaded with
+        that keyframe's and its covisible neighbours' landmarks. Frames
+        already tracked process as lost. Returns False when no keyframe is
+        accepted (the caller may then re-seed)."""
+        w = self.world
+        if w.n_keyframes == 0:
+            return False
+        p = self.params
+        best, votes, T_opt = reloc.retrieve(
+            w, outputs["keys"], w.n_keyframes, K=self.K, baseline=float(self.baseline),
+            min_inliers=max(p.min_inliers // 2, 20),
         )
+        if best < 0:
+            return False
+        ids = w.kf_obs_lm[best]
+        ids = ids[ids >= 0]
+        covis = w.covisible_kfs(best)
+        if len(covis):
+            more = w.kf_obs_lm[covis]
+            ids = np.unique(np.concatenate([ids, more[more >= 0]]))
+        A = p.active_size
+        out = np.full(A, -1, np.int64)
+        out[: min(len(ids), A)] = ids[:A]
+        self.active_ids = out
+        self.miss_age = np.zeros(A, np.int64)
+        # the verified solve is the camera pose; zero velocity restart
+        pose = np.asarray(T_opt, np.float32)
+        self.pose = pose.copy()
+        self.prev_pose = pose.copy()
+        self.velocity = np.zeros(3, np.float32)
+        self._state = self._fresh_state(self.pose)
+        self.lost_streak = 0
+        self.last_kf_frame = frame_idx
+        self.last_kf_slot = best
+        rel = np.linalg.inv(w.kf_poses_host[best]) @ pose
+        self.frame_records.append((best, rel.astype(np.float32)))
+        self.last_kf_tracked = max(votes, 1)
+        self.counters.inc("relocalizations")
+        return True
 
     def _kf_decision(self, frame_idx: int, n_keys: int, n_inl: int, n_stereo_inl: int) -> bool:
         """Keyframe policy (reference src/FeatureTracker.cpp:1262 plus the
@@ -846,29 +949,43 @@ class StereoTracker:
 
     def _insert_keyframe(
         self, frame_idx: int, pose: np.ndarray, outputs: dict,
-        layout: np.ndarray, ages: np.ndarray,
-    ):
-        """Insert a keyframe at the (re-anchoring-corrected) host pose; its
-        host-side completion is deferred to the next processed frame."""
+        layout: np.ndarray, ages: np.ndarray, reseed: bool = False, defer: bool = False,
+    ) -> int:
+        """Insert a keyframe at the (re-anchoring-corrected) host pose.
+        `reseed`: a re-seed keyframe behaves like frame-0 map init: every
+        stereo match spawns, with no spawn cap and no suppression near the
+        old landmarks (the ones that stopped matching). `defer`: the host
+        side completes at the next processed frame. Returns the spawn count,
+        or -1 when deferred."""
         p = self.params
         dev = self.device
+        A = p.active_size
         keys, st = outputs["keys"], outputs["st"]
         kf_slot = self.world.alloc_keyframe(frame_idx)
-        spawn_host = self.world.alloc_landmarks(p.spawn_per_kf)
+        spawn_n = p.n_features if reseed else p.spawn_per_kf
+        spawn_host = self.world.alloc_landmarks(spawn_n)
+        if reseed:
+            st_close = st["matched"]
+            sup_ids = torch.full((A,), -1, dtype=torch.int64, device=dev)
+            lm_pred = torch.zeros((A, 2), device=dev)
+            lm_in_frame = torch.zeros((A,), dtype=torch.bool, device=dev)
+        else:
+            st_close = st["close"]
+            sup_ids = torch.as_tensor(self.active_ids, device=dev)
+            lm_pred, lm_in_frame = outputs["lm_pred"], outputs["in_frame"]
         host_blob = _prepare_and_commit(
             kf_slot, self._to_device(pose), keys, st["depth"], st["est_right_x"],
-            st["matched"], st["close"], outputs["midx"], outputs["inliers"],
+            st["matched"], st_close, outputs["midx"], outputs["inliers"],
             torch.as_tensor(layout, device=dev), torch.as_tensor(spawn_host, device=dev),
-            self.world.arrays, torch.as_tensor(self.active_ids, device=dev),
-            outputs["lm_pred"], outputs["in_frame"], outputs["midx_r"],
+            self.world.arrays, sup_ids, lm_pred, lm_in_frame, outputs["midx_r"],
             outputs["r_uv"], outputs["r_oct"], outputs["st_flags"], self.K,
-            spawn=p.spawn_per_kf, max_close=p.max_spawn_close,
+            spawn=spawn_n, max_close=spawn_n if reseed else p.max_spawn_close,
             n_levels=p.n_levels, scale=p.scale, width=self.width,
             height=self.height, n_right=self.world.right_obs_per_kf,
             desc_majority=p.desc_majority,
         )
-        self._commit_keyframe(
-            kf_slot, host_blob, spawn_host, layout, ages, T_kf_host=pose, defer=True,
+        return self._commit_keyframe(
+            kf_slot, host_blob, spawn_host, layout, ages, T_kf_host=pose, defer=defer,
         )
 
     def _commit_keyframe(
@@ -955,3 +1072,144 @@ class StereoTracker:
         self.flush()
         out = [self.world.kf_poses_host[s] @ rel for s, rel in self.frame_records]
         return np.stack(out) if out else np.zeros((0, 4, 4), np.float32)
+
+
+class MonoTracker(StereoTracker):
+    """Monocular-inertial frontend (reference TrackImageMonoIMU,
+    src/FeatureTracker.cpp:1280-1495; vslam_tpu/models/tracker.py:1655-1855).
+
+    Bootstrap: the first keyframe anchors the world; later frames
+    dead-reckon on the IMU until `BOOTSTRAP_KFS` motion-gated keyframes
+    (include/Conversions.h:112-137) are in, every frame in between becoming
+    an observation-only keyframe too (up to `MAX_BOOTSTRAP_VIEWS`), so the
+    one-time init triangulates across all of them. The caller then
+    triangulates the initial map (``LocalMapper.find_new_points(slot,
+    mono=True)``, as ``VSlamSystem.track_mono_imu`` does) and clears
+    ``needs_init_triangulation``; metric scale comes from the IMU
+    baselines. Steady state is the shared frame step on one image."""
+
+    BOOTSTRAP_KFS = 3  # motion-gated keyframes, reference src/FeatureTracker.cpp:1315
+    # every bootstrap frame is a triangulation view up to the mapper's
+    # window (local_mapper.WINDOW)
+    MAX_BOOTSTRAP_VIEWS = 12
+    # view floor before init completes: at fast ego-motion the 3 gates can
+    # pass in 3 frames, too few views for a dense init
+    MIN_BOOTSTRAP_VIEWS = 6
+
+    def __init__(self, K, width, height, world, params=None, imu_cfg=None, *, device="cuda"):
+        super().__init__(
+            K, baseline=0.0, width=width, height=height, world=world, params=params,
+            imu_cfg=imu_cfg, device=device,
+        )
+        self._mono = True
+        p = self.params
+        # the reference's 1200 px mono re-acquisition radius, reached only
+        # when the tight radii starve, and its relaxed thresholds
+        ms = p.mono_radius_schedule or (10.0, 120.0, 400.0, 1200.0)
+        self._radii = [float(np.float32(r)) for r in ms]
+        ffr = p.mono_first_frame_radius if p.mono_first_frame_radius is not None else ms[-1]
+        self._radii_first = [float(np.float32(ffr))] * len(ms)
+        self._desc_thr = float(np.float32(
+            p.mono_desc_thr if p.mono_desc_thr is not None else float(p.desc_thr) + 50.0
+        ))
+        self._ratio = float(np.float32(
+            p.mono_ratio if p.mono_ratio is not None else min(float(p.ratio) + 0.1, 0.95)
+        ))
+        self.initialized = False
+        self.bootstrap_slots: list[int] = []  # every bootstrap view's slot
+        self.gate_slots: list[int] = []  # the motion-gated subset
+        self.needs_init_triangulation = False
+
+    def track(self, left, right=None, imu=None):
+        """Track one (H, W) image; `imu` as for StereoTracker.track."""
+        if self.initialized:
+            return super().track(left, None, imu)
+        with self.metrics.stage("track"):
+            self.counters.inc("frames")
+            return self._bootstrap(left, imu)
+
+    def _bootstrap(self, left, imu):
+        img = self._frames(left, None)[0]
+        if imu is not None and self.imu_cfg is not None and self.frame_idx > 0:
+            # dead-reckon on the IMU (reference PredictNextPoseIMU)
+            rows = np.asarray(imu, np.float32)[: self.imu_cfg.max_samples]
+            gravity, T_bc, prm = self._imu_const
+            T_new, v_new = _imu_predict(
+                rows, self._to_device(self.pose), self._to_device(self.velocity),
+                self._to_device(self.bias), gravity, T_bc, prm,
+            )
+            self.prev_pose = self.pose
+            self.pose = T_new.cpu().numpy()
+            self.velocity = v_new.cpu().numpy()
+
+        take_gate = self.frame_idx == 0 or (
+            len(self.gate_slots) < self.BOOTSTRAP_KFS
+            and sufficient_motion(self.pose, self.world.kf_poses_host[self.gate_slots[-1]])
+        )
+        take_view = take_gate or len(self.bootstrap_slots) < self.MAX_BOOTSTRAP_VIEWS - 1
+        if take_view:
+            self._insert_mono_keyframe(_frontend_mono(img, self.params))
+            self.bootstrap_slots.append(self.last_kf_slot)
+            if take_gate:
+                self.gate_slots.append(self.last_kf_slot)
+            if (
+                len(self.gate_slots) >= self.BOOTSTRAP_KFS
+                and len(self.bootstrap_slots) >= self.MIN_BOOTSTRAP_VIEWS
+            ):
+                self.needs_init_triangulation = True
+                self.initialized = True
+                self.last_kf_frame = self.frame_idx
+                self._state = self._fresh_state(self.pose)
+                # keep the dead-reckoned motion: the next tracked frame's
+                # constant-velocity prediction continues the arc
+                self._state["prev_pose"] = self._to_device(self.prev_pose)
+        else:
+            ref = self.world.kf_poses_host[self.last_kf_slot]
+            rel = np.linalg.inv(ref) @ self.pose
+            self.frame_records.append((self.last_kf_slot, rel.astype(np.float32)))
+        self.frame_idx += 1
+        return self.pose.copy()
+
+    def _insert_mono_keyframe(self, keys: extract.Keys):
+        """A keyframe with observations and no spawns at the current pose
+        (mono landmarks come only from multi-view triangulation, reference
+        1497-1684); committed at once."""
+        p = self.params
+        A, N = p.active_size, p.n_features
+        dev = self.device
+        kf_slot = self.world.alloc_keyframe(self.frame_idx)
+        spawn_host = self.world.alloc_landmarks(1)
+        none_i = torch.full((A,), -1, dtype=torch.int64, device=dev)
+        none_b = torch.zeros((A,), dtype=torch.bool, device=dev)
+        none_k = torch.zeros((N,), dtype=torch.bool, device=dev)
+        host_blob = _prepare_and_commit(
+            kf_slot, self._to_device(self.pose), keys,
+            torch.zeros((N,), device=dev),  # st_depth
+            torch.full((N,), -1.0, device=dev),  # st_right_x
+            none_k, none_k,  # st_matched, st_close: no spawns
+            none_i, none_b, none_i, torch.as_tensor(spawn_host, device=dev),
+            self.world.arrays, none_i, torch.zeros((A, 2), device=dev), none_b, none_i,
+            torch.zeros((A, 2), device=dev), torch.zeros((A,), dtype=torch.int64, device=dev),
+            none_b, self.K, spawn=1, max_close=1, n_levels=p.n_levels, scale=p.scale,
+            width=self.width, height=self.height, n_right=self.world.right_obs_per_kf,
+            desc_majority=p.desc_majority,
+        )
+        self._commit_keyframe(
+            kf_slot, host_blob, spawn_host, self.active_ids, self.miss_age, T_kf_host=self.pose,
+        )
+
+    def _kf_decision(self, frame_idx: int, n_keys: int, n_inl: int, n_stereo_inl: int) -> bool:
+        """Mono KF policy (reference 1470-1484): a low tracked mono count
+        (only for frames tracked after the last keyframe's landmarks went
+        live), every-Nth frame with a low tracked ratio, or the max gap."""
+        p = self.params
+        ratio_thr = p.kf_tracked_ratio_many if n_keys > p.many_keys else p.kf_tracked_ratio
+        saw_last_kf = frame_idx - self.last_kf_frame > p.pipeline_depth
+        return (
+            (saw_last_kf and n_inl < p.kf_min_mono)
+            or (
+                frame_idx - self.last_kf_frame >= p.kf_every
+                and n_inl < ratio_thr * max(self.last_kf_tracked, 1)
+            )
+            or frame_idx - self.last_kf_frame >= p.kf_max_interval
+        ) and n_inl >= p.min_inliers // 2

@@ -1,5 +1,5 @@
 """Local bundle adjustment: batched LM with an explicit Schur complement
-(port of vslam_tpu/ops/schur.py, the single-device unslabbed path).
+(port of vslam_tpu/ops/schur.py, the single-device paths).
 
 The reference's GTSAM local BA (src/OptimizationBA.cpp:426-940) as dense
 blocked linear algebra: projection residuals per observation row, a
@@ -20,12 +20,17 @@ Differences from the JAX version, none of which changes the math:
   ``cho_factor`` does, and the LM rejects it instead of raising;
 - ``lax.while_loop`` is a host loop that reads the done flag every
   ``_DONE_CHECK_EVERY`` iterations; the state is frozen once done, so the
-  stop iteration does not depend on that interval.
+  stop iteration does not depend on that interval;
+- the slab loops of the chunked reduction (``n_slabs > 1``, global BA)
+  are Python loops in slab order, so the reduced system is summed in one
+  fixed order; the rows are sorted by landmark once per solve and each
+  slab scatters only its own (a segment's rows are summed one after
+  another, so rows dropped into one spare row, as JAX's mode="drop"
+  does, would make one serial chain of most of the rows).
 
-Not ported: the observation-row sharding (``axis_name``, ROADMAP A12) and
-the slab-chunked reduction (``n_slabs``, A11, global BA). The JAX
-package's staged ``local_ba_round1``/``round2`` are not needed: the async
-mapper runs both rounds on its worker thread.
+Not ported: the observation-row sharding (``axis_name``, ROADMAP A12). The
+JAX package's staged ``local_ba_round1``/``round2`` are not needed: the
+async mapper runs both rounds on its worker thread.
 """
 
 from __future__ import annotations
@@ -62,15 +67,10 @@ class BAProblem(NamedTuple):
     odo_valid: torch.Tensor  # (W-1,) bool
 
 
-def _not_ported(axis_name, n_slabs):
+def _not_ported(axis_name):
     if axis_name is not None:
         raise NotImplementedError(
             "vslam_torch: the sharded local BA (axis_name, ROADMAP A12) is not ported yet"
-        )
-    if n_slabs != 1:
-        raise NotImplementedError(
-            "vslam_torch: the slab-chunked Schur reduction (n_slabs > 1, global BA, "
-            "ROADMAP A11) is not ported yet"
         )
 
 
@@ -200,21 +200,64 @@ def _odometry_residual_and_jacobians(p: BAProblem, with_jac: bool = True):
 
 def ba_error(p: BAProblem, axis_name: str | None = None) -> torch.Tensor:
     """Total error 0.5 * (||r_obs||^2 + ||r_odo||^2)."""
-    _not_ported(axis_name, 1)
+    _not_ported(axis_name)
     r, _, _ = _obs_residual_and_jacobians(p, with_jac=False)
     ro, _, _ = _odometry_residual_and_jacobians(p, with_jac=False)
     return 0.5 * (torch.sum(r * r) + torch.sum(ro * ro))
 
 
-def _slab_system(p: BAProblem, r, Jp, Jl):
-    """Full-L landmark blocks: Hll (L,3,3), Hpl (W,L,6,3), gl (L,3)."""
-    W, L = p.poses.shape[0], p.pts.shape[0]
-    z = dict(dtype=r.dtype, device=r.device)
-    Hll = _scatter_add(torch.zeros((L, 3, 3), **z), (p.obs_lm,), torch.einsum("oik,oil->okl", Jl, Jl))
-    Hpl = _scatter_add(
-        torch.zeros((W, L, 6, 3), **z), (p.obs_kf, p.obs_lm), torch.einsum("oik,oil->okl", Jp, Jl)
+def _landmark_rows(r, Jp, Jl):
+    """Per-row terms of the landmark blocks: Jl^T Jl, Jp^T Jl, Jl^T r."""
+    return (
+        torch.einsum("oik,oil->okl", Jl, Jl),
+        torch.einsum("oik,oil->okl", Jp, Jl),
+        torch.einsum("oik,oi->ok", Jl, r),
     )
-    gl = _scatter_add(torch.zeros((L, 3), **z), (p.obs_lm,), torch.einsum("oik,oi->ok", Jl, r))
+
+
+class _Slab(NamedTuple):
+    """Landmark slots [off, off + n) of a Schur reduction and the
+    observation rows that reach them."""
+
+    off: int
+    n: int
+    rows: torch.Tensor | None  # (O_s,) its rows in landmark order; None: every row
+    kf: torch.Tensor  # (O_s,) their pose slots
+    loc: torch.Tensor  # (O_s,) their landmarks, counted from off
+
+
+def _slabs(p: BAProblem, n_slabs: int) -> list:
+    """The problem's landmarks in `n_slabs` equal slabs. One slab takes
+    every row as it stands. Several: the valid rows are sorted by landmark
+    once (stable, so each block sums its rows in the same order as one
+    slab does) and cut at the slab bounds on the host, so a slab scatters
+    only its own rows; invalid rows carry zero weight and are left out."""
+    L = p.pts.shape[0]
+    if L % n_slabs:
+        raise ValueError(f"n_slabs={n_slabs} must divide the {L} landmark slots")
+    if n_slabs == 1:
+        return [_Slab(0, L, None, p.obs_kf, p.obs_lm)]
+    Lloc = L // n_slabs
+    key = torch.where(p.obs_valid, p.obs_lm, L)
+    order = torch.argsort(key, stable=True)
+    bounds = torch.arange(0, L + 1, Lloc, dtype=key.dtype, device=key.device)
+    cuts = torch.searchsorted(key[order], bounds).tolist()
+    slabs = []
+    for i in range(n_slabs):
+        rows = order[cuts[i] : cuts[i + 1]]
+        slabs.append(_Slab(i * Lloc, Lloc, rows, p.obs_kf[rows], p.obs_lm[rows] - i * Lloc))
+    return slabs
+
+
+def _slab_system(p: BAProblem, rows, slab: _Slab):
+    """Landmark blocks of one slab from `rows` (:func:`_landmark_rows`):
+    Hll (n,3,3), Hpl (W,n,6,3), gl (n,3)."""
+    W = p.poses.shape[0]
+    HllR, HplR, glR = rows if slab.rows is None else (t[slab.rows] for t in rows)
+    z = dict(dtype=glR.dtype, device=glR.device)
+    Hll = _scatter_add(torch.zeros((slab.n, 3, 3), **z), (slab.loc,), HllR)
+    Hpl = _scatter_add(torch.zeros((W, slab.n, 6, 3), **z), (slab.kf, slab.loc), HplR)
+    gl = _scatter_add(torch.zeros((slab.n, 3), **z), (slab.loc,), glR)
     return Hll, Hpl, gl
 
 
@@ -250,14 +293,21 @@ def _pose_system(p: BAProblem, r, Jp, free):
     return _add_odometry(p, Hpp, gp, free)
 
 
-def _assemble(p: BAProblem, axis_name: str | None = None):
-    """The blocked normal equations (Hpp, Hll, Hpl, gp, gl)."""
-    _not_ported(axis_name, 1)
+def _linearize(p: BAProblem):
+    """One LM step's linearization: the pose blocks (Hpp, gp) and the
+    per-row landmark terms (:func:`_landmark_rows`)."""
     free = (~p.fixed) & p.pose_valid
     r, Jp, Jl = _obs_residual_and_jacobians(p)
     Jp = Jp * free[p.obs_kf][:, None, None]
-    Hll, Hpl, gl = _slab_system(p, r, Jp, Jl)
     Hpp, gp = _pose_system(p, r, Jp, free)
+    return Hpp, gp, _landmark_rows(r, Jp, Jl)
+
+
+def _assemble(p: BAProblem, axis_name: str | None = None):
+    """The blocked normal equations (Hpp, Hll, Hpl, gp, gl)."""
+    _not_ported(axis_name)
+    Hpp, gp, rows = _linearize(p)
+    Hll, Hpl, gl = _slab_system(p, rows, _slabs(p, 1)[0])
     return Hpp, Hll, Hpl, gp, gl
 
 
@@ -312,20 +362,50 @@ def _solve_reduced(p: BAProblem, Hpp, gp, S_red, b_red, lam):
     return torch.where(info == 0, x, float("nan"))
 
 
-def _schur_solve(p: BAProblem, Hpp, Hll, Hpl, gp, gl, lam, axis_name=None):
-    """Damped Schur-complement step -> (delta_pose (W,6), delta_pt (L,3))."""
-    _not_ported(axis_name, 1)
-    W, L = p.poses.shape[0], p.pts.shape[0]
+def _back_substitute(Hll_inv, observed, Hpl, gl, delta_p, pt_valid):
+    """Landmark steps dl = Hll^-1 (-gl - Hlp dp); 0 for unobserved or
+    invalid landmarks."""
+    rhs = -gl - torch.einsum("alij,ai->lj", Hpl, delta_p)
+    delta_l = torch.einsum("ljk,lk->lj", Hll_inv, rhs)
+    return torch.where((observed & pt_valid)[:, None], delta_l, 0.0)
+
+
+def _reduce_slab(Hll, Hpl, gl, lam):
+    """A slab's share of the reduced camera system, S_red = sum_l Hpl_l
+    Hll_l^-1 Hpl_l^T as ONE (6W, 3L) x (3L, 6W) product, and of b_red;
+    with the damped inverses (Hll_inv, observed) for the
+    back-substitution."""
+    W, L = Hpl.shape[0], Hpl.shape[1]
     Hll_inv, observed = _damped_inv3(Hll, lam)
-    # S_red = sum_l Hpl_l Hll_l^-1 Hpl_l^T as ONE (6W, 3L) x (3L, 6W) product
     M = torch.einsum("alij,ljk->alik", Hpl, Hll_inv)
     M2 = M.permute(0, 2, 1, 3).reshape(6 * W, 3 * L)
     H2 = Hpl.permute(0, 2, 1, 3).reshape(6 * W, 3 * L)
-    b_red = torch.einsum("alik,lk->ai", M, gl)
-    delta_p = _solve_reduced(p, Hpp, gp, M2 @ H2.T, b_red, lam)
-    rhs = -gl - torch.einsum("alij,ai->lj", Hpl, delta_p)
-    delta_l = torch.einsum("ljk,lk->lj", Hll_inv, rhs)
-    delta_l = torch.where((observed & p.pt_valid)[:, None], delta_l, 0.0)
+    return M2 @ H2.T, torch.einsum("alik,lk->ai", M, gl), Hll_inv, observed
+
+
+def _schur_step(p: BAProblem, lam, slabs: list):
+    """One damped Schur-complement step -> (delta_pose (W,6), delta_pt
+    (L,3)), the landmarks eliminated slab by slab in slab order
+    (vslam_tpu/ops/schur.py:390-436): peak memory holds one (W, L /
+    n_slabs, 6, 3) Hpl block. The rows are linearized once; one slab keeps
+    its blocks for the back-substitution, several are assembled again."""
+    Hpp, gp, rows = _linearize(p)
+    S_red = b_red = kept = None
+    for s in slabs:
+        Hll, Hpl, gl = _slab_system(p, rows, s)
+        S_i, b_i, Hll_inv, observed = _reduce_slab(Hll, Hpl, gl, lam)
+        S_red = S_i if S_red is None else S_red + S_i
+        b_red = b_i if b_red is None else b_red + b_i
+        if len(slabs) == 1:
+            kept = (Hll_inv, observed, Hpl, gl)
+    delta_p = _solve_reduced(p, Hpp, gp, S_red, b_red, lam)
+    if kept is not None:
+        return delta_p, _back_substitute(*kept, delta_p, p.pt_valid)
+    delta_l = torch.empty_like(p.pts)
+    for s in slabs:
+        Hll, Hpl, gl = _slab_system(p, rows, s)
+        cut = slice(s.off, s.off + s.n)
+        delta_l[cut] = _back_substitute(*_damped_inv3(Hll, lam), Hpl, gl, delta_p, p.pt_valid[cut])
     return delta_p, delta_l
 
 
@@ -337,18 +417,20 @@ def local_ba(
     lambda). GTSAM accept/reject with relativeErrorTol: done when an
     ACCEPTED step gains <= rel_tol * max(err, 1e-12); lambda x0.1 on
     accept, x10 on reject, clipped to [1e-9, 1e6]. A NaN trial error is a
-    rejection. `stats`, when given, receives the iteration count."""
-    _not_ported(axis_name, n_slabs)
+    rejection. `n_slabs > 1`: the Schur reduction in landmark slabs
+    (global BA at map scale). `stats`, when given, receives the iteration
+    count."""
+    _not_ported(axis_name)
     err = ba_error(p)
     dev = err.device
     lam = torch.tensor(lambda0, dtype=torch.float32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     n_iter = torch.zeros((), dtype=torch.int64, device=dev)
+    slabs = _slabs(p, n_slabs)
     for i in range(iters):
         if i and i % _DONE_CHECK_EVERY == 0 and bool(done):
             break
-        Hpp, Hll, Hpl, gp, gl = _assemble(p)
-        dp, dl = _schur_solve(p, Hpp, Hll, Hpl, gp, gl, lam)
+        dp, dl = _schur_step(p, lam, slabs)
         p_new = p._replace(poses=se3.retract(p.poses, dp), pts=p.pts + dl)
         new_err = ba_error(p_new)
         active = ~done
@@ -373,11 +455,12 @@ def local_ba_two_rounds(
 ):
     """The reference's 2-round schedule (src/OptimizationBA.cpp:543-873):
     round 1 LM -> chi-squared outlier sweep -> round 2 LM (lambda restarts)
-    -> final kill mask. Returns (problem, error, kill (O,) bool)."""
-    _not_ported(axis_name, n_slabs)
-    p1, _, _ = local_ba(p, iters=iters1, stats=stats)
+    -> final kill mask; `n_slabs` as for :func:`local_ba`. Returns
+    (problem, error, kill (O,) bool)."""
+    _not_ported(axis_name)
+    p1, _, _ = local_ba(p, iters=iters1, n_slabs=n_slabs, stats=stats)
     p1 = p1._replace(obs_valid=p1.obs_valid & (obs_chi2(p1) < CHI2_THR))
-    p2, err, _ = local_ba(p1, iters=iters2, stats=stats)
+    p2, err, _ = local_ba(p1, iters=iters2, n_slabs=n_slabs, stats=stats)
     kill = p2.obs_valid & (obs_chi2(p2) >= CHI2_THR)
     return p2, err, kill
 

@@ -1,22 +1,26 @@
 """End-to-end drive on a rendered synthetic world (the port of
 examples/run_synthetic.py), with no dataset: renders one of the built-in
-scenes, runs the full pipeline (extraction, stereo matching, tracking,
-the async local BA) and prints fps + ATE against the scene's exact ground
-truth.
+scenes, runs the full pipeline (extraction, stereo matching or the mono
+bootstrap, tracking, the async local BA or mono triangulation) and prints
+fps + ATE against the scene's exact ground truth.
 
     python -m vslam_torch.run_synthetic                  # EuRoC-geometry stereo
     python -m vslam_torch.run_synthetic --scene kitti    # KITTI-geometry stereo
+    python -m vslam_torch.run_synthetic --scene mono     # monocular-inertial, lateral
+    python -m vslam_torch.run_synthetic --global-ba      # + one BA over the whole map
     python -m vslam_torch.run_synthetic --device cpu --frames 8
 
 Runs on the GPU unless ``--device cpu``. Not ported yet (NotImplementedError):
-``--scene mono`` (monocular-inertial, ROADMAP A9), ``--scene loop`` (loop
-closure, A10), ``--viz`` (the map viewer, A8) and ``--global-ba`` (A11).
+``--scene loop`` (loop closure, ROADMAP A10) and ``--viz`` (the map viewer,
+A8).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+import numpy as np
 
 SCENES = {
     # name: (width, height, fps, n_frames, n_features, description)
@@ -53,19 +57,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--viz", default=None, help="HTML map viewer output path")
     ap.add_argument("--global-ba", action="store_true")
     args = ap.parse_args(argv)
-    if args.scene == "mono":
-        raise NotImplementedError(
-            "vslam_torch: --scene mono (monocular-inertial tracking, ROADMAP A9) is not ported yet"
-        )
     if args.scene == "loop":
         raise NotImplementedError("vslam_torch: --scene loop (loop closure, ROADMAP A10) is not ported yet")
     if args.viz:
         raise NotImplementedError("vslam_torch: --viz (the map viewer, ROADMAP A8) is not ported yet")
-    if args.global_ba:
-        raise NotImplementedError("vslam_torch: --global-ba (global BA, ROADMAP A11) is not ported yet")
 
     from vslam_torch.models import system as system_mod
-    from vslam_torch.utils import synthetic, trajectory
+    from vslam_torch.utils import datasets, synthetic, trajectory
     from vslam_torch.utils.config import ConfigFile
 
     W, H, fps, n, nfeat, desc = SCENES[args.scene]
@@ -73,32 +71,57 @@ def main(argv=None) -> dict:
         n = args.frames
     print(f"[scene] {desc}: {W}x{H} @ {fps} fps, {n} frames, {nfeat} features")
 
+    mono = args.scene == "mono"
     t0 = time.time()
-    scene = synthetic.make_scene(
-        n_frames=n, n_points=900, width=W, height=H, fps=fps,
-        seed=3 if args.scene == "euroc" else 5,
-    )
+    if mono:
+        scene = synthetic.make_scene(
+            n_frames=n, n_points=900, width=W, height=H, fps=fps, seed=11,
+            texture="distinct", motion="lateral",
+        )
+    else:
+        scene = synthetic.make_scene(
+            n_frames=n, n_points=900, width=W, height=H, fps=fps,
+            seed=3 if args.scene == "euroc" else 5,
+        )
     print(f"[scene] built in {time.time() - t0:.1f}s; rendering + tracking...")
 
-    conf = ConfigFile.from_dict(config(W, H, fps, nfeat, 1))
+    conf = ConfigFile.from_dict(config(W, H, fps, nfeat, 2 if mono else 1))
     sys_ = system_mod.VSlamSystem(
         conf, async_ba=True, lm_capacity=1 << 15, kf_capacity=128, device=args.device
     )
+    if mono:
+        sys_.tracker.velocity = scene.velocities[0].astype(np.float32)
+        bins = datasets.bin_imu_per_frame(scene.imu, scene.times)
     t0 = time.time()
     for f in range(n):
-        sys_.track_stereo(scene.render(f), scene.render(f, right=True))
+        if mono:
+            sys_.track_mono_imu(scene.render(f), imu=bins[f])
+        else:
+            sys_.track_stereo(scene.render(f), scene.render(f, right=True))
         if (f + 1) % 50 == 0:
             print(f"  frame {f + 1}/{n}  kfs={sys_.world.n_keyframes}")
     sys_.exit()
     wall = time.time() - t0
+    gt = scene.poses_c2w[:n]
+    result = {}
+    if args.global_ba:
+        result["ate_before_global_ba_m"] = float(trajectory.ate_rmse(sys_.trajectory(), gt, align=False))
+        t0 = time.time()
+        g = sys_.global_ba()
+        result["global_ba_s"] = time.time() - t0
+        result["global_ba_error"] = None if g is None else g["error"]
 
     poses = sys_.trajectory()
-    ate = float(trajectory.ate_rmse(poses, scene.poses_c2w[: len(poses)], align=False))
+    ate = float(trajectory.ate_rmse(poses, gt[: len(poses)], align=False))
     result = {
         "scene": args.scene, "frames": n, "wall_s": wall, "fps": n / wall, "ate_m": ate,
         "keyframes": sys_.world.n_keyframes, "landmarks": sys_.world.n_landmarks,
-        "ba_runs": sys_.mapper.ba_count, "device": str(sys_.device),
+        "ba_runs": sys_.mapper.ba_count, "device": str(sys_.device), **result,
     }
+    if mono:
+        trk = sys_.tracker
+        result["bootstrap_views"] = len(trk.bootstrap_slots)
+        result["init_frame"] = int(sys_.world.kf_frame_idx[trk.bootstrap_slots[-1]])
     print(
         f"[result] {n} frames in {wall:.1f}s ({n / wall:.1f} fps incl. host "
         f"rendering) | ATE RMSE vs exact GT: {ate:.4f} m | "

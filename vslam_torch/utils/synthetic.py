@@ -567,3 +567,87 @@ def make_scene(
         gain_drift=gain_drift,
         occluders_w=occluders_w,
     )
+
+
+def corridor_map(
+    n_kf: int, n_lm: int, keys_per_kf: int, obs_per_lm: int = 3, seed: int = 0,
+    fx: float = 460.0, cx: float = 320.0, cy: float = 240.0, baseline: float = 0.12,
+) -> dict:
+    """A map-scale keyframe map built directly, without tracking (the copy
+    of tests/test_ba.py:150-228's world): keyframe poses along a forward
+    corridor with a slow yaw, landmarks spread along it, each observed by
+    `obs_per_lm` consecutive keyframes with exact stereo projections (the
+    first `keys_per_kf` that fit a keyframe). Returns numpy arrays: poses
+    (n_kf, 4, 4), pts (n_lm, 3), obs_uv (n_kf, K, 3), obs_lm (n_kf, K)
+    int64 (-1 free), obs_oct, obs_stereo, obs_valid, lm_capacity (the
+    power of two above n_lm + 1), and the rig's K and baseline."""
+    rng = np.random.default_rng(seed)
+    lm_cap = 1
+    while lm_cap < n_lm + 2:
+        lm_cap *= 2
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_kf, 1, 1))
+    for i in range(n_kf):
+        yaw = 0.002 * i
+        c, s = np.cos(yaw), np.sin(yaw)
+        poses[i, :3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        poses[i, :3, 3] = [0.3 * np.sin(0.05 * i), 0.0, 0.5 * i]
+    pts = np.stack(
+        [rng.uniform(-6, 6, n_lm), rng.uniform(-4, 4, n_lm), rng.uniform(0, 0.5 * n_kf + 20.0, n_lm) + 6.0],
+        axis=-1,
+    ).astype(np.float32)
+    K = keys_per_kf
+    obs_uv = np.zeros((n_kf, K, 3), np.float32)
+    obs_lm = np.full((n_kf, K), -1, np.int64)
+    obs_valid = np.zeros((n_kf, K), bool)
+    fill = np.zeros(n_kf, np.int64)
+    T_cw = np.linalg.inv(poses)
+    anchor = np.clip(((pts[:, 2] - 12.0) / 0.5).astype(np.int64), 0, n_kf - obs_per_lm)
+    for i in range(n_lm):
+        for d in range(obs_per_lm):
+            k = int(anchor[i]) + d
+            j = fill[k]
+            if j >= K:
+                continue
+            pc = T_cw[k, :3, :3] @ pts[i] + T_cw[k, :3, 3]
+            if pc[2] < 0.5:
+                continue
+            obs_uv[k, j] = [fx * pc[0] / pc[2] + cx, fx * pc[1] / pc[2] + cy,
+                            fx * (pc[0] - baseline) / pc[2] + cx]
+            obs_lm[k, j] = i
+            obs_valid[k, j] = True
+            fill[k] += 1
+    return {
+        "poses": poses, "pts": pts, "obs_uv": obs_uv, "obs_lm": obs_lm,
+        "obs_oct": np.zeros((n_kf, K), np.int64), "obs_stereo": obs_valid.copy(),
+        "obs_valid": obs_valid, "lm_capacity": lm_cap,
+        "K": np.array([[fx, 0, cx], [0, fx, cy], [0, 0, 1]], np.float32), "baseline": baseline,
+    }
+
+
+def corridor_world(n_kf: int, n_lm: int, keys_per_kf: int, *, device, **kw):
+    """:func:`corridor_map` loaded into a WorldMap on `device` (8
+    right-camera slots per keyframe, none used), host mirrors included.
+    Returns (world, the corridor_map dict)."""
+    import torch
+
+    from vslam_torch.models import map_state
+
+    c = corridor_map(n_kf, n_lm, keys_per_kf, **kw)
+    world = map_state.WorldMap(lm_capacity=c["lm_capacity"], kf_capacity=n_kf,
+                               keys_per_kf=keys_per_kf, right_obs_per_kf=8, device=device)
+    m = world.arrays
+
+    def put(name, a):
+        getattr(m, name).copy_(torch.as_tensor(a))
+
+    for name in ("obs_uv", "obs_lm", "obs_oct", "obs_stereo", "obs_valid"):
+        put(name, c[name])
+    put("kf_pose", c["poses"])
+    m.kf_valid.fill_(True)
+    m.lm_pos[:n_lm] = torch.as_tensor(c["pts"]).to(device)
+    m.lm_valid[:n_lm] = True
+    world.kf_obs_lm[:] = c["obs_lm"]
+    world.kf_poses_host[:] = c["poses"]
+    world.n_keyframes, world.n_landmarks = n_kf, n_lm
+    world.kf_frame_idx[:n_kf] = np.arange(n_kf)
+    return world, c
