@@ -15,14 +15,15 @@ own line:
    an odd shape and with out-of-range corners, and extract_windows_levels
    on frame 0's full 8-level table, as the main path calls it, for the
    bench configuration, for the KITTI one (1248x384, 2048 features,
-   seed 5; the synthetic driver's table) and for the mono one (one view,
-   752x480, 1024 features, frame 0 of phase 13's scene). Then each table's
+   seed 5; the synthetic driver's table), for the mono one (one view,
+   752x480, 1024 features, frame 0 of phase 13's scene) and for the loop
+   circuit (512x384, 1024 features, frame 0 of phase 16's scene). Then each table's
    one launch is
    timed: device time on a primed stream and host time per call
    (vslam_torch/kernels/timing.py), against the plain version, one
    advanced-indexing call per level (the library yardstick) and the bound
    from the bytes the frame must move;
-4. main path: StereoTracker (no mapper) over 40 frames of the synthetic
+4. main path: StereoTracker (no mapper) over 16 frames of the synthetic
    EuRoC-geometry scene at the bench configuration (752x480, seed 3,
    1024 features, 8 levels, 4096 active landmarks) on the card; kernel
    launch counts (one per frame), fps, keyframes, landmarks, ATE against
@@ -83,8 +84,9 @@ own line:
    init triangulation, mono triangulation at every keyframe) on the card
    over the bench's lateral mono scene (752x480, seed 11, 900 points,
    20 fps, 60 frames, distinct texture; bench.py:175-241), frames staged on
-   the card: fps, frame p50/p90, bootstrap views and gates, init
-   landmarks, keyframes, landmarks, ATE (must be <= 0.05 m, bench.py:418's
+   the card: fps, frame p50/p90, bootstrap views and gates, the landmark
+   count of every mono triangulation and the init's own (the call made
+   while needs_init_triangulation is set), keyframes, landmarks, ATE (must be <= 0.05 m, bench.py:418's
    gate), extract_windows launches (bootstrap views + tracked frames) and
    plain calls (0); the same run again, bit for bit; then card vs CPU on
    the first 16 frames (the same slots, poses within 1e-3 m / 1e-3 rad);
@@ -104,7 +106,27 @@ own line:
    reduction in 4 slabs against 1 (poses within 5e-4, points within 5e-3
    over the landmarks whose 3x3 block is conditioned, errors within 1e-3
    relative, the same kill mask; the worst landmark's rows, block
-   eigenvalues and move against its ray printed).
+   eigenvalues and move against its ray printed);
+16. loop: the bench's loop circuit (bench.py:244-309: make_loop_scene at
+   512x384, 360 frames, 1.2 laps, wall radius 10 m; 1024 features, active
+   set 1024, 32768 landmark and 256 keyframe slots, async BA at a fixed
+   latency, loop closure on), frames staged on the card: fps, frame
+   p50/p90, keyframes, landmarks, each applied closure (slots, frames,
+   pose-graph path, merges, error, wall of its close), the detections'
+   and the polishes' walls, closures (>= 1), ATE live (< 0.06 m) and after
+   global_ba() (< max(1.1 x live, 0.05) m; tests/test_loop_closure.py:583,
+   587), extract_windows launches (360) and plain calls (0); the first
+   applied closure replayed twice from a copy of the map taken before it
+   (the written maps bit-identical); the split-map closures of
+   tests/test_loop_closure.py:374-456 (stereo, and mono through the
+   Sim(3) graph) on the card and on the CPU (the same candidate, merge
+   pairs and n_merged, poses within 1e-4 m / 1e-4 rad); one
+   optimize_chain on the 2048-pose chain of tests/test_loop_closure.py:224
+   (wall, iterations, launches and syncs per iteration, the drift it
+   recovers: > 90%).
+
+Frames are rendered on the host by 8 processes forked at start-up,
+before CUDA is initialized, and stopped at the end.
 
 The second-to-last line is the kernel report {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Nothing is caught: any failure raises.
@@ -112,8 +134,11 @@ line {"ok": true, "device": {...}}. Nothing is caught: any failure raises.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import copy
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -122,15 +147,17 @@ import numpy as np
 import torch
 
 from vslam_torch import kernels, run_synthetic
-from vslam_torch.geometry import triangulate
+from vslam_torch.geometry import se3, triangulate
 from vslam_torch.kernels import timing
-from vslam_torch.models import local_mapper, map_state, reloc, system, tracker
+from vslam_torch.models import local_mapper, loop_closure, map_state, pose_graph, reloc, system, tracker
 from vslam_torch.ops import extract, imu, lm, patches, pyramid, schur
 from vslam_torch.utils import datasets, synthetic, trajectory
 from vslam_torch.utils.config import ConfigFile
 
 # the bench configuration (bench.py:341-345) and its scene
-WIDTH, HEIGHT, SEED, N_FRAMES = 752, 480, 3, 40
+# phase 4 runs 16 frames: with phase 16 the whole script took 1372 s of
+# its 1200 s limit at 40 (PERF.md section 4)
+WIDTH, HEIGHT, SEED, N_FRAMES = 752, 480, 3, 16
 PARAMS = dict(n_features=1024, n_levels=8, active_size=4096)
 WORLD = dict(lm_capacity=1 << 15, kf_capacity=128, keys_per_kf=1024)
 PATCH = 31
@@ -153,6 +180,17 @@ MONO_SCENE = dict(n_points=900, width=WIDTH, height=HEIGHT, fps=20.0, seed=MONO_
 RECOVERY_GATE_M = 0.15
 # map-scale global BA (tests/test_ba.py:231-283)
 MAP_KF, MAP_LM, MAP_SLABS = 256, 50_000, 8
+# the bench's loop circuit (bench.py:244-309) and its gates
+# (tests/test_loop_closure.py:583, 587)
+LOOP_W, LOOP_H, LOOP_FRAMES = 512, 384, 360
+LOOP_SCENE = dict(n_frames=LOOP_FRAMES, width=LOOP_W, height=LOOP_H, loops=1.2, wall_radius=10.0)
+LOOP_PARAMS = dict(n_features=1024, n_levels=8, active_size=1024)
+LOOP_CAPS = dict(lm_capacity=1 << 15, kf_capacity=256)
+LOOP_ATE_GATE_M, LOOP_GBA_FLOOR_M = 0.06, 0.05
+# the split-map closures (tests/test_loop_closure.py:374-456): scale_err, baseline
+SPLIT_CASES = {"stereo": (1.0, 0.12), "mono": (0.9, 0.0)}
+# the 2048-pose chain (tests/test_loop_closure.py:224-271)
+CHAIN_P = 2048
 
 
 T0 = time.perf_counter()
@@ -161,6 +199,24 @@ T0 = time.perf_counter()
 def say(phase: str, **fields):
     """One phase's line; `t_s` is the script's elapsed wall time."""
     print(f"[{phase}] " + json.dumps({**fields, "t_s": time.perf_counter() - T0}), flush=True)
+
+
+RENDER_WORKERS = 8  # processes that render frames (the chip machine has 8 cores)
+_POOL = None  # the renderers, forked at start-up, before CUDA is initialized
+
+
+def _render_frames(scene, frames, stereo: bool) -> list:
+    return [np.stack([scene.render(f), scene.render(f, right=True)]) if stereo else scene.render(f)
+            for f in frames]
+
+
+def _render(scene, n: int, stereo: bool = True) -> list:
+    """Frames 0..n-1 of `scene` ((2, H, W) L+R pairs, or (H, W) views),
+    rendered by the pool (the renderer is a Python loop over patches, one
+    core per view)."""
+    chunks = [c for c in np.array_split(np.arange(n), 4 * RENDER_WORKERS) if len(c)]
+    parts = _POOL.map(_render_frames, [scene] * len(chunks), chunks, [stereo] * len(chunks))
+    return [v for part in parts for v in part]
 
 
 def phase_device() -> str:
@@ -256,6 +312,15 @@ def phase_kernels_mono(dev, smi) -> dict:
     return {"max_abs_err": max(errs), **t}
 
 
+def phase_kernels_loop(scene, dev, smi) -> dict:
+    """extract_windows_levels on frame 0's table of the loop circuit."""
+    cases = _level_inputs(scene, dev, LOOP_H, LOOP_W, LOOP_PARAMS["n_features"], seed=0)
+    agree, errs = _agreement()
+    t = _table(cases, agree, smi, f"loop circuit {LOOP_W}x{LOOP_H}, {LOOP_PARAMS['n_features']} keys, "
+                                  "frame 0, 8 levels, L+R, one launch")
+    return {"max_abs_err": max(errs), **t}
+
+
 def _agreement():
     """A check that a kernel's output is torch.equal to its plain version,
     and the list of the max abs errors it has seen."""
@@ -327,7 +392,7 @@ def _run_tracker(scene, frames, device):
 
 def phase_main_path(scene) -> tuple[int, list, float]:
     t0 = time.perf_counter()
-    pairs = [np.stack([scene.render(f), scene.render(f, right=True)]) for f in range(N_FRAMES)]
+    pairs = _render(scene, N_FRAMES)
     render_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     # stage every frame pair on the card ahead of the loop, as bench.py does
@@ -448,7 +513,7 @@ def _plain_calls():
 
 def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system.VSlamSystem, float]:
     t0 = time.perf_counter()
-    pairs = [np.stack([scene.render(f), scene.render(f, right=True)]) for f in range(SYS_FRAMES)]
+    pairs = _render(scene, SYS_FRAMES)
     render_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     frames = [torch.from_numpy(p).to(dev) for p in pairs]
@@ -492,7 +557,7 @@ def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system
     c = m.counters
     say("system", frames=SYS_FRAMES, fps=SYS_FRAMES / run_s, run_s=run_s, render_s=render_s,
         frame_p50_ms=trk_st["track"]["p50_ms"], frame_p90_ms=trk_st["track"]["p90_ms"],
-        frame_p50_ms_first40=1e3 * float(np.median(sys_.tracker.metrics.samples("track")[:N_FRAMES])),
+        **{f"frame_p50_ms_first{N_FRAMES}": 1e3 * float(np.median(sys_.tracker.metrics.samples("track")[:N_FRAMES]))},
         ba_runs=m.ba_count, ba_p50_ms=ba_st["run"]["p50_ms"], ba_p90_ms=ba_st["run"]["p90_ms"],
         ba_total_s=ba_st["run"]["total_s"],
         lm_iters_round1=c.get("lm_iters_round1"), lm_iters_round2=c.get("lm_iters_round2"),
@@ -846,13 +911,15 @@ def _mono_system(scene, device):
 
 def _run_mono(sys_, frames, bins):
     """track_mono_imu over the frames; returns (trajectory, the landmark
-    count of each mono triangulation, the first being the init's)."""
+    count of each mono triangulation and whether it is the init's: the
+    call made while needs_init_triangulation is set; the facade also
+    triangulates bootstrap keyframes before it)."""
     found = sys_.mapper.find_new_points
     counts = []
 
     def counted(kf_slot, mono=False):
         ids = found(kf_slot, mono=mono)
-        counts.append(len(ids))
+        counts.append((len(ids), bool(sys_.tracker.needs_init_triangulation)))
         return ids
 
     sys_.mapper.find_new_points = counted
@@ -865,7 +932,7 @@ def _run_mono(sys_, frames, bins):
 def phase_mono() -> int:
     scene = synthetic.make_scene(n_frames=MONO_FRAMES, **MONO_SCENE)
     t0 = time.perf_counter()
-    imgs = [scene.render(f) for f in range(MONO_FRAMES)]
+    imgs = _render(scene, MONO_FRAMES, stereo=False)
     render_s = time.perf_counter() - t0
     bins = datasets.bin_imu_per_frame(scene.imu, scene.times)
     frames = [torch.from_numpy(i).to("cuda") for i in imgs]
@@ -887,11 +954,13 @@ def phase_mono() -> int:
     want = len(trk.bootstrap_slots) + tracked
     ate = trajectory.ate_rmse(poses, scene.poses_c2w[:MONO_FRAMES], align=False)
     repeat, _ = _run_mono(_mono_system(scene, "cuda"), frames, bins)
+    init = [c for c, is_init in tri if is_init]
     st = trk.metrics.summary()
     say("mono", frames=MONO_FRAMES, fps=MONO_FRAMES / run_s, run_s=run_s, render_s=render_s,
         frame_p50_ms=st["track"]["p50_ms"], frame_p90_ms=st["track"]["p90_ms"],
         bootstrap_views=len(trk.bootstrap_slots), bootstrap_gates=len(trk.gate_slots),
-        init_frame=init_frame, init_landmarks=tri[0], triangulations=len(tri),
+        init_frame=init_frame, init_landmarks=init[0] if len(init) == 1 else init,
+        triangulation_counts=[c for c, _ in tri], triangulations=len(tri),
         keyframes=len(trk.new_kf_slots), landmarks=sys_.world.n_landmarks, ate_m=ate,
         extract_windows_launches=launches, want_launches=want, tracked_frames=tracked,
         plain_calls_on_card=len(plain_devices), relocalizations=trk.counters.get("relocalizations"),
@@ -899,6 +968,8 @@ def phase_mono() -> int:
         repeat_bit_identical=bool(np.array_equal(poses, repeat)))
     if launches != want or plain_devices:
         raise AssertionError(f"mono: {launches} launches, want {want}; {len(plain_devices)} plain")
+    if len(init) != 1:
+        raise AssertionError(f"mono: {len(init)} init triangulations")
     if not ate <= ATE_GATE_M:
         raise AssertionError(f"mono ATE {ate} m > {ATE_GATE_M} m")
     if not np.array_equal(poses, repeat):
@@ -1076,9 +1147,249 @@ def phase_global_ba(sys_, scene):
                              f"relative error {rel_err(pert)} -> {rel_err(new)}")
 
 
+def _loop_system(device):
+    """The bench's loop-circuit facade (bench.py:244-309): stereo, the
+    driver's rectified rig (fx = fy = 460, baseline 0.12, 10 fps), 1024
+    features, an active set of 1024, async BA at a fixed latency, loop
+    closure on."""
+    cfg = run_synthetic.config(LOOP_W, LOOP_H, 10.0, LOOP_PARAMS["n_features"], 1)
+    sys_ = system.VSlamSystem(ConfigFile.from_dict(cfg), async_ba=True, loop_closure=True, **LOOP_CAPS,
+                              tracker_params=tracker.TrackerParams(**LOOP_PARAMS), device=device)
+    sys_.deterministic_ba_latency = True
+    return sys_
+
+
+def _map_snapshot(w) -> tuple:
+    """Copies of every map array and host mirror of a WorldMap."""
+    arrays = {k: v.clone() for k, v in vars(w.arrays).items()}
+    host = {k: getattr(w, k).copy() for k in ("kf_obs_lm", "kf_obs_r_lm", "kf_frame_idx", "kf_poses_host")}
+    return arrays, host
+
+
+def _same_map(a, b) -> bool:
+    return (all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+            and all(np.array_equal(a[1][k], b[1][k]) for k in a[1]))
+
+
+def _spy(obj, name, calls):
+    """Wrap obj.name to append (wall seconds with the card synchronized,
+    result) to `calls`; returns a function that restores it."""
+    fn = getattr(obj, name)
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(obj, name, run)
+    return lambda: setattr(obj, name, fn)
+
+
+def phase_loop(scene) -> int:
+    """Phase 16: the bench's loop circuit through the facade on the card,
+    then the first applied closure replayed twice from a copy of the map
+    taken just before it."""
+    t0 = time.perf_counter()
+    frames = _stage(_render(scene, LOOP_FRAMES))
+    render_s = time.perf_counter() - t0
+    sys_ = _loop_system("cuda")
+    closer = sys_.loop_closer
+    detects, polishes, written = [], [], {}
+    closes = []
+    close = closer.close
+
+    def timed_close(kf_slot, old_kf, T_loop):
+        # until a closure is applied, a copy of the map and of the closer's
+        # edges is taken before each close (outside its wall time)
+        snap = None if written else (copy.deepcopy(closer.world), copy.deepcopy(closer._edges))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = close(kf_slot, old_kf, T_loop)
+        torch.cuda.synchronize()
+        closes.append((time.perf_counter() - t0, r))
+        if r is not None and not written:
+            written.update(args=(kf_slot, old_kf, T_loop), map=_map_snapshot(closer.world),
+                           world=snap[0], edges=snap[1])
+        return r
+
+    closer.close = timed_close
+    restore = [lambda: setattr(closer, "close", close), _spy(closer, "detect", detects),
+               _spy(sys_.mapper, "run_global", polishes)]
+    try:
+        with _plain_calls() as plain_devices:
+            patches.LAUNCHES = 0
+            t0 = time.perf_counter()
+            poses = _run_system(sys_, frames)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = patches.LAUNCHES
+    finally:
+        for r in restore:
+            r()
+    gt = scene.poses_c2w[:LOOP_FRAMES]
+    ate = trajectory.ate_rmse(poses, gt, align=False)
+    t0 = time.perf_counter()
+    g = sys_.global_ba()
+    torch.cuda.synchronize()
+    gba_s = time.perf_counter() - t0
+    ate2 = trajectory.ate_rmse(sys_.trajectory(), gt, align=False)
+    applied = [(wall, r) for wall, r in closes if r is not None]
+    trk = sys_.tracker.metrics.summary()
+    w = sys_.world
+    say("loop", frames=LOOP_FRAMES, fps=LOOP_FRAMES / run_s, run_s=run_s, render_s=render_s,
+        frame_p50_ms=trk["track"]["p50_ms"], frame_p90_ms=trk["track"]["p90_ms"],
+        keyframes=w.n_keyframes, landmarks=w.n_landmarks, ba_runs=sys_.mapper.ba_count,
+        closures=closer.closures, close_calls=len(closes),
+        applied=[{"kf_slot": r["kf_slot"], "old_kf": r["old_kf"], "path": r["path"],
+                  "n_merged": r["n_merged"], "pose_graph_error": r["pose_graph_error"],
+                  "kf_frame": int(w.kf_frame_idx[r["kf_slot"]]),
+                  "old_kf_frame": int(w.kf_frame_idx[r["old_kf"]]), "close_wall_ms": wall * 1e3}
+                 for wall, r in applied],
+        detect_calls=len(detects), detect_total_s=sum(c[0] for c in detects),
+        detect_p50_ms=1e3 * float(np.median([c[0] for c in detects])) if detects else None,
+        polishes=len(polishes), polish_wall_s=[c[0] for c in polishes],
+        ate_live_m=ate, ate_after_global_ba_m=ate2, global_ba_s=gba_s,
+        global_ba_error=None if g is None else g["error"],
+        extract_windows_launches=launches, plain_calls_on_card=len(plain_devices))
+    if launches != LOOP_FRAMES or plain_devices:
+        raise AssertionError(f"loop: {launches} launches, {len(plain_devices)} plain calls")
+    if poses.shape != (LOOP_FRAMES, 4, 4) or not np.isfinite(poses).all():
+        raise AssertionError(f"loop: bad trajectory {poses.shape}")
+    if closer.closures < 1 or not written:
+        raise AssertionError("loop: no closure fired on the circuit")
+    if not ate < LOOP_ATE_GATE_M:
+        raise AssertionError(f"loop: live ATE {ate} m >= {LOOP_ATE_GATE_M} m")
+    if not ate2 < max(1.1 * ate, LOOP_GBA_FLOOR_M):
+        raise AssertionError(f"loop: ATE after global BA {ate2} m (live {ate} m)")
+
+    # the first applied closure, replayed twice from the map copied just
+    # before it: the written map must be the same bit for bit
+    K = closer.K.cpu().numpy()
+    replays = []
+    for _ in range(2):
+        w = copy.deepcopy(written["world"])
+        c = loop_closure.LoopCloser(w, K, closer.baseline)
+        c._edges = copy.deepcopy(written["edges"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = c.close(*written["args"])
+        torch.cuda.synchronize()
+        replays.append((_map_snapshot(w), (time.perf_counter() - t0) * 1e3, r is not None))
+    same = _same_map(replays[0][0], replays[1][0])
+    say("loop_closure_repeat", kf_slot=written["args"][0], old_kf=written["args"][1],
+        applied=[r[2] for r in replays], replay_wall_ms=[r[1] for r in replays],
+        replays_bit_identical=same, equal_to_live_write=_same_map(replays[0][0], written["map"]))
+    if not (same and all(r[2] for r in replays)):
+        raise AssertionError("loop: two replays of one closure on the card wrote different maps")
+    return launches
+
+
+def phase_loop_card_vs_cpu():
+    """The split-map closures of tests/test_loop_closure.py:374-456 on the
+    card and on the CPU (utils/synthetic.split_map_world): the same
+    detection, merge pairs and n_merged, poses within 1e-4 m / 1e-4 rad."""
+    for case, (scale_err, baseline) in SPLIT_CASES.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            w, _, _, K = synthetic.split_map_world(scale_err=scale_err, device=dev)
+            n = w.n_keyframes
+            c = loop_closure.LoopCloser(w, K, baseline, min_gap=3)
+            first = c.try_close(n - 2)
+            cand = c._last_cand
+            pairs = c._merge_pairs(n - 1, cand[1]) if cand else None
+            t0 = time.perf_counter()
+            r = c.try_close(n - 1)
+            wall = time.perf_counter() - t0
+            out[dev] = (first, cand, pairs, r, w.kf_poses_host[:n].copy(), wall)
+        g, p = out["cuda"], out["cpu"]
+        fields = ("old_kf", "n_merged", "path")
+        ok = g[0] is None and p[0] is None and g[3] is not None and p[3] is not None
+        same = ok and g[1] == p[1] and g[2] == p[2] and all(g[3][k] == p[3][k] for k in fields)
+        dt, ang = _pose_diff(g[4], p[4])
+        say("loop_card_vs_cpu", case=case, candidate=g[1], pairs=len(g[2] or ()),
+            **({k: g[3][k] for k in fields + ("pose_graph_error",)} if g[3] else {}),
+            pose_graph_error_cpu=p[3]["pose_graph_error"] if p[3] else None,
+            same_detection_pairs_merges=same, max_dt_m=float(dt.max()), max_drot_rad=float(ang.max()),
+            try_close_wall_ms_card=g[5] * 1e3, try_close_wall_ms_cpu=p[5] * 1e3)
+        if not same or dt.max() > BA_TOL_M or ang.max() > BA_TOL_RAD:
+            raise AssertionError(f"loop card vs CPU ({case}): same {same}, {dt.max()} m, {ang.max()} rad")
+
+
+def _chain_problem():
+    """tests/test_loop_closure.py:224-271's 2048-pose chain: biased odometry
+    and 3 true loop edges (0-680, 0-1360, 0-2047) in 4 slots."""
+    def expm(xi):
+        return se3.se3_expmap(torch.tensor(xi, dtype=torch.float32)).numpy()
+
+    step = expm([0.0, 0.02, 0.0, 0.0, 0.0, 0.3])
+    small = expm([2e-5, 0.0201, 0.0, 2e-4, 1e-4, 0.30004])
+    gt, est = [np.eye(4, dtype=np.float32)], [np.eye(4, dtype=np.float32)]
+    for _ in range(1, CHAIN_P):
+        gt.append(gt[-1] @ step)
+        est.append(est[-1] @ small)
+    gt, est = np.stack(gt), np.stack(est)
+    L = loop_closure.LOOP_EDGES
+    li, lj = np.zeros(L, np.int64), np.zeros(L, np.int64)
+    lrel, lw = np.tile(np.eye(4, dtype=np.float32), (L, 1, 1)), np.zeros(L, np.float32)
+    for k, b in enumerate((680, 1360, CHAIN_P - 1)):
+        li[k], lj[k], lrel[k], lw[k] = 0, b, np.linalg.inv(gt[0]) @ gt[b], 100.0
+    args = (est, np.ones(CHAIN_P, bool), np.tile(small, (CHAIN_P - 1, 1, 1)),
+            np.full(CHAIN_P - 1, 100.0, np.float32), li, lj, lrel, lw)
+    return gt, est, args
+
+
+def phase_pose_graph():
+    """One optimize_chain at P = 2048 on the card: wall, iterations, the
+    launches and syncs of one iteration, the drift it recovers; the same
+    call on the CPU for the difference."""
+    gt, est, args = _chain_problem()
+    dev_args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in args]
+    pose_graph.optimize_chain(*dev_args, iters=25)  # warm-up
+    it = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, err = pose_graph.optimize_chain(*dev_args, iters=25, stats=it)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # one iteration's launches and syncs: the difference of two profiled
+    # calls of 4 and 8 iterations (the chain takes all 25, so neither stops
+    # early)
+    p4, p8 = (_profile_counts(lambda k=k: (pose_graph.optimize_chain(*dev_args, iters=k), torch.cuda.synchronize()))
+              for k in (4, 8))
+    t0 = time.perf_counter()
+    pc, _ = pose_graph.optimize_chain(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args), iters=25)
+    cpu_s = time.perf_counter() - t0
+    ps = ps.cpu().numpy()
+    pre = float(np.linalg.norm(est[-1, :3, 3] - gt[-1, :3, 3]))
+    post = float(np.linalg.norm(ps[-1, :3, 3] - gt[-1, :3, 3]))
+    errs = np.linalg.norm(ps[:, :3, 3] - gt[:, :3, 3], axis=1)
+    say("pose_graph_chain", poses=CHAIN_P, loop_edges=3, wall_s=wall, iterations=it[0], error=float(err),
+        launches_per_iteration=(p8["kernel_launches"] - p4["kernel_launches"]) / 4,
+        syncs_per_iteration=(p8["stream_syncs"] - p4["stream_syncs"]) / 4,
+        device_busy_ms_per_iteration=(p8["device_busy_ms"] - p4["device_busy_ms"]) / 4,
+        profiled_4_8_iterations=[p4, p8], drift_end_m=[pre, post], max_pose_err_m=float(errs.max()), cpu_s=cpu_s,
+        max_dt_card_vs_cpu_m=float(np.abs(ps[:, :3, 3] - pc.numpy()[:, :3, 3]).max()))
+    if not (post < 0.1 * pre and errs.max() < 0.2):
+        raise AssertionError(f"2048-pose chain: drift {pre} -> {post} m, max error {errs.max()} m")
+
+
 def main() -> int:
+    global _POOL
+    with concurrent.futures.ProcessPoolExecutor(
+        RENDER_WORKERS, mp_context=multiprocessing.get_context("fork")
+    ) as _POOL:
+        list(_POOL.map(abs, range(RENDER_WORKERS)))  # fork every worker now
+        return run()
+
+
+def run() -> int:
     smi = phase_device()
     phase_build()
+    loop_scene = synthetic.make_loop_scene(**LOOP_SCENE)
+    t_loop = phase_kernels_loop(loop_scene, torch.device("cuda"), smi)
     scene = synthetic.make_scene(n_frames=N_FRAMES, n_points=900, width=WIDTH, height=HEIGHT,
                                  fps=20.0, seed=SEED)
     t = phase_kernels(scene, torch.device("cuda"), smi)
@@ -1100,6 +1411,9 @@ def main() -> int:
     launches_kitti, launches_driver_mono = phase_driver()
     launches_mono = phase_mono()
     launches_recovery = phase_recovery()
+    launches_loop = phase_loop(loop_scene)
+    phase_loop_card_vs_cpu()
+    phase_pose_graph()
     report = {"kernels": [{
         "name": "extract_windows",
         "route": "cuda",
@@ -1109,7 +1423,8 @@ def main() -> int:
         "launches_by_phase": {"tracker": launches_trk, "system": launches,
                               "async_system": launches_async, "stereo_imu": launches_imu,
                               "kitti_driver": launches_kitti, "mono_driver": launches_driver_mono,
-                              "mono_system": launches_mono, "relocalization": launches_recovery},
+                              "mono_system": launches_mono, "relocalization": launches_recovery,
+                              "loop_circuit": launches_loop},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],
@@ -1121,7 +1436,8 @@ def main() -> int:
         "library_ms": t["library_ms"],
         **{f"{name}_table": {k: tab[k] for k in (
             "max_abs_err", "launches_per_frame", "device_ms", "host_ms_per_call", "plain_ms",
-            "bound_ms", "library_ms")} for name, tab in (("kitti", t_kitti), ("mono", t_mono))},
+            "bound_ms", "library_ms")} for name, tab in (("kitti", t_kitti), ("mono", t_mono),
+                                                         ("loop", t_loop))},
     }]}
     print(smi)
     print(json.dumps(report))

@@ -3,8 +3,9 @@ against their plain PyTorch versions, a short tracker run and a short
 VSlamSystem run on the card against the same runs on the CPU, the local
 BA's bit-reproducibility on the card, the async mapper's worker thread and
 side stream against the sync mapper, a short STEREO_IMU run, a short
-mono-inertial run, relocalization retrieval and the slab-chunked Schur
-reduction. They skip without a card. This file
+mono-inertial run, relocalization retrieval, the slab-chunked Schur
+reduction, the pose graphs and the split-map loop closure. They skip
+without a card. This file
 imports no jax (the GPU machine has none); run it there with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -361,3 +362,75 @@ def test_slabbed_schur_on_card(dev):
     assert torch.equal(a[0].poses, b[0].poses) and torch.equal(a[2], b[2])
     np.testing.assert_allclose(a[0].poses.cpu().numpy(), c[0].poses.cpu().numpy(), atol=5e-4, rtol=0)
     assert torch.equal(a[2], c[2])
+
+
+def _drifted_graph(n=40):
+    """A 40-pose chain with biased odometry and one true loop edge 0 -> n-1
+    (tests/test_loop_closure.py:18-60's problem, built with the port's
+    se3): (poses, chain_rel, loop-edge slots)."""
+    def expm(xi):
+        return se3.se3_expmap(torch.tensor(xi, dtype=torch.float32)).numpy()
+
+    step, drift = expm([0.0, 0.02, 0.0, 0.0, 0.0, 0.3]), expm([5e-4, 0.0225, 0.0, 0.004, 0.002, 0.301])
+    gt, est = [np.eye(4, dtype=np.float32)], [np.eye(4, dtype=np.float32)]
+    for _ in range(1, n):
+        gt.append(gt[-1] @ step)
+        est.append(est[-1] @ drift)
+    gt, est = np.stack(gt), np.stack(est)
+    loop = (np.array([0, 0, 0, 0]), np.array([n - 1, 0, 0, 0]),
+            np.stack([np.linalg.inv(gt[0]) @ gt[-1]] + [np.eye(4, dtype=np.float32)] * 3).astype(np.float32),
+            np.array([100.0, 0, 0, 0], np.float32))
+    return est, np.tile(drift, (n - 1, 1, 1)), loop
+
+
+@pytest.mark.parametrize("solver", ["dense", "chain", "sim3"])
+def test_pose_graph_on_card_matches_cpu(dev, solver):
+    """Each pose-graph solver on the card: bit-identical when repeated,
+    within 5e-5 of the same solve on the CPU (another sum order over 30
+    GN steps; translations reach 12 m, so a few float32 ulps)."""
+    from vslam_torch.models import pose_graph
+
+    est, chain_rel, (li, lj, lrel, lw) = _drifted_graph()
+    n = len(est)
+    w = np.full(n - 1, 100.0, np.float32)
+    if solver == "dense":
+        ei = np.concatenate([np.arange(n - 1), li[:1]])
+        ej = np.concatenate([np.arange(1, n), lj[:1]])
+        args = (est, np.ones(n, bool), ei, ej, np.concatenate([chain_rel, lrel[:1]]), np.full(n, 100.0, np.float32))
+        fn = pose_graph.optimize
+    else:
+        args = (est, np.ones(n, bool), chain_rel, w, li, lj, lrel, lw)
+        fn = pose_graph.optimize_chain if solver == "chain" else pose_graph.optimize_sim3_chain
+
+    def run(device):
+        return fn(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args), iters=30)
+
+    a, b, c = run(dev), run(dev), run("cpu")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    np.testing.assert_allclose(a[0].cpu().numpy(), c[0].numpy(), atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["stereo", "mono"])
+def test_split_map_closure_on_card_matches_cpu(dev, case):
+    """The split-map closure (tests/test_loop_closure.py:374-456; mono
+    through the Sim(3) graph) on the card and on the CPU: the same old
+    keyframe, merge pairs and n_merged, identical observation tables,
+    keyframe poses within 1e-4."""
+    from vslam_torch.models import loop_closure
+
+    scale_err, baseline = {"stereo": (1.0, 0.12), "mono": (0.9, 0.0)}[case]
+    out = []
+    for device in (dev, "cpu"):
+        w, _, _, K = synthetic.split_map_world(scale_err=scale_err, device=device)
+        n = w.n_keyframes
+        c = loop_closure.LoopCloser(w, K, baseline, min_gap=3)
+        assert c.try_close(n - 2) is None
+        pairs = c._merge_pairs(n - 1, c._last_cand[1])
+        r = c.try_close(n - 1)
+        out.append((pairs, r, w))
+    (pg, rg, wg), (pc, rc, wc) = out
+    assert pg == pc and rg is not None and rc is not None
+    assert (rg["old_kf"], rg["n_merged"], rg["path"]) == (rc["old_kf"], rc["n_merged"], rc["path"])
+    assert torch.equal(wg.arrays.obs_lm.cpu(), wc.arrays.obs_lm) and np.array_equal(wg.kf_obs_lm, wc.kf_obs_lm)
+    assert torch.equal(wg.arrays.lm_valid.cpu(), wc.arrays.lm_valid)
+    np.testing.assert_allclose(wg.kf_poses_host, wc.kf_poses_host, atol=1e-4, rtol=0)

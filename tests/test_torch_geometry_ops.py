@@ -202,6 +202,9 @@ SCENE_CASES = [
          n_occluders=2, ramp_tau=0.5),
     dict(n_frames=3, n_points=60, width=128, height=96, fps=10.0, seed=11, texture="repeated",
          motion="excited", lowtex_span=(3.0, 6.0, 0.3)),
+    # make_loop_scene: the closed circuit (bench.py:258's loops and wall radius)
+    dict(maker="make_loop_scene", n_frames=4, n_points=80, width=128, height=96, seed=2, loops=1.2,
+         wall_radius=10.0, noise_std=1.0),
 ]
 
 
@@ -209,7 +212,9 @@ SCENE_CASES = [
 def test_port_scene_and_ate_equal_the_jax_package(kw):
     """The same seeded scene through both packages: identical frames (both
     eyes), poses, IMU and landmarks; identical ATE, aligned and not."""
-    s_t, s_j = tsyn.make_scene(**kw), synthetic.make_scene(**kw)
+    kw = dict(kw)
+    maker = kw.pop("maker", "make_scene")
+    s_t, s_j = getattr(tsyn, maker)(**kw), getattr(synthetic, maker)(**kw)
     for name in ("K", "points_w", "patches", "poses_c2w", "velocities", "imu", "times"):
         np.testing.assert_array_equal(getattr(s_t, name), getattr(s_j, name), err_msg=name)
     for f in range(kw["n_frames"]):

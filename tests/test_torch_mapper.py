@@ -438,17 +438,19 @@ def test_trajectory_io_matches_jax(tmp_path, scene):
 
 
 def test_unported_paths_raise(runs, tmp_path):
-    """Shards and loop closure raise at construction, the driver's loop
-    scene, a mesh and observation-row sharding in the BA raise; MONOCULAR
+    """Shards raise at construction (loop_closure=True builds the
+    closer), a mesh and observation-row sharding in the BA raise; MONOCULAR
     (sync or async) builds a MonoTracker; global BA and mono triangulation
     run on every mapper entry (sync, staged and async) of the stereo map."""
     from vslam_torch import run_synthetic
 
     conf = TConfig.from_dict(_config())
     params = ttr.TrackerParams(**PARAMS)
-    for kw, what in (({"shards": 2}, "A12"), ({"shards": "auto"}, "A12"), ({"loop_closure": True}, "A10")):
+    for kw, what in (({"shards": 2}, "A12"), ({"shards": "auto"}, "A12")):
         with pytest.raises(NotImplementedError, match=what):
             tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu", **kw)
+    lc = tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu", loop_closure=True)
+    assert lc.loop_closer is not None and lc.loop_closer.world is lc.world
     for async_ba in (False, True):
         mono = tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu",
                                 mode=tsys.SlamMode.MONOCULAR, async_ba=async_ba)
@@ -462,8 +464,6 @@ def test_unported_paths_raise(runs, tmp_path):
                  lambda: m.finish(m.run_async_staged(n_kf - 1, mono=True))):
         assert call()["kf_slot"] == n_kf - 1
     assert isinstance(m.find_new_points(n_kf - 1, mono=True), np.ndarray)
-    with pytest.raises(NotImplementedError, match="A10"):
-        run_synthetic.main(["--device", "cpu", "--scene", "loop"])
     with pytest.raises(NotImplementedError, match="A12"):
         tlm.LocalMapper(ts.world, np.eye(3), BL, mesh=object())
     p = tsch.BAProblem(*[torch.zeros(1)] * len(tsch.BAProblem._fields))

@@ -77,3 +77,64 @@ def test_bench_mono_scene_init_matches_jax():
     assert t["init_frame"] == j["init_frame"] < N_FRAMES - 2
     np.testing.assert_array_equal(t["init_ids"], j["init_ids"])
     np.testing.assert_allclose(np.stack(t["poses"]), np.stack(j["poses"]), atol=1e-3, rtol=0)
+
+
+def _facade_triangulations(sys_, frames, bins) -> list:
+    """track_mono_imu over the frames; the landmark count of each mono
+    triangulation the facade ran, the init's included, in order."""
+    found = sys_.mapper.find_new_points
+    counts = []
+
+    def counted(kf_slot, mono=False):
+        ids = found(kf_slot, mono=mono)
+        counts.append((kf_slot, len(ids), bool(sys_.tracker.needs_init_triangulation)))
+        return ids
+
+    sys_.mapper.find_new_points = counted
+    for f, img in enumerate(frames):
+        sys_.track_mono_imu(img, imu=bins[f])
+    return counts
+
+
+def test_facade_mono_triangulations_match_jax(tmp_path):
+    """The facade in slamMode 2 (chip_smoke.py phase 13's set-up at
+    376x240: the driver's config and IMU block, the scene's intrinsics and
+    initial velocity) in both packages: the same sequence of mono
+    triangulations (keyframe slot, landmark count, and whether it is the
+    init's: the call made while needs_init_triangulation is set). The
+    facade triangulates keyframes before the init too
+    (vslam_tpu/models/system.py:316-323, 353), so the first count is not
+    the init's."""
+    import yaml
+
+    from vslam_torch import run_synthetic
+    from vslam_torch.models import system as tsys
+    from vslam_torch.utils.config import ConfigFile as TConfig
+    from vslam_tpu.models import system as jsys
+    from vslam_tpu.utils.config import ConfigFile as JConfig
+
+    scene = synthetic.make_scene(n_frames=N_FRAMES, n_points=900, width=W, height=H, fps=20.0,
+                                 seed=11, texture="distinct", motion="lateral")
+    frames = [scene.render(f) for f in range(N_FRAMES)]
+    bins = datasets.bin_imu_per_frame(scene.imu, scene.times)
+    cfg = run_synthetic.config(W, H, 20.0, PARAMS["n_features"], 2)
+    cam = {"fx": float(scene.K[0, 0]), "fy": float(scene.K[1, 1]),
+           "cx": float(scene.K[0, 2]), "cy": float(scene.K[1, 2])}
+    cfg.update(Camera_l=dict(cam), Camera_r=dict(cam))
+    path = tmp_path / "c.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    caps = dict(lm_capacity=WORLD["lm_capacity"], kf_capacity=WORLD["kf_capacity"])
+    runs = []
+    for sys_ in (
+        jsys.VSlamSystem(JConfig(str(path)), tracker_params=jtr.TrackerParams(**PARAMS), **caps),
+        tsys.VSlamSystem(TConfig.from_dict(cfg), tracker_params=ttr.TrackerParams(**PARAMS),
+                         device="cpu", **caps),
+    ):
+        sys_.tracker.velocity = scene.velocities[0].astype(np.float32)
+        runs.append((_facade_triangulations(sys_, frames, bins), sys_.tracker))
+    (j, jt), (t, tt) = runs
+    print(f"[facade mono {W}x{H}] triangulations (slot, landmarks, init) {t} (JAX {j})")
+    assert tt.initialized and jt.initialized
+    assert tt.bootstrap_slots == jt.bootstrap_slots and tt.gate_slots == jt.gate_slots
+    assert t == j
+    assert sum(init for _, _, init in t) == 1

@@ -86,7 +86,7 @@ def se3_expmap(xi: torch.Tensor) -> torch.Tensor:
 def se3_logmap(T: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) -> (..., 6) [omega, v]."""
     w = so3_logmap(T[..., :3, :3])
-    Jinv = torch.linalg.inv(_so3_left_jacobian(w))
+    Jinv = torch.linalg.inv_ex(_so3_left_jacobian(w))[0]  # never singular; no host sync
     v = (Jinv @ T[..., :3, 3:4])[..., 0]
     return torch.cat([w, v], dim=-1)
 

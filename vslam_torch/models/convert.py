@@ -37,6 +37,26 @@ def map_arrays_from_jax(arrays: dict, device) -> map_state.MapArrays:
     return map_state.MapArrays(**{k: _tensor(arrays[k], device) for k in names})
 
 
+def world_from_jax(world, device) -> map_state.WorldMap:
+    """A vslam_tpu ``WorldMap`` -> the port's WorldMap on `device`: its
+    arrays (each read with ``np.asarray``, which needs no JAX import here)
+    through :func:`map_arrays_from_jax`, its capacities, and copies of the
+    host mirrors (kf_obs_lm, kf_obs_r_lm, kf_frame_idx, kf_poses_host,
+    n_keyframes, n_landmarks)."""
+    out = map_state.WorldMap(
+        lm_capacity=world.lm_capacity, kf_capacity=world.kf_capacity,
+        keys_per_kf=world.keys_per_kf, right_obs_per_kf=world.right_obs_per_kf, device=device,
+    )
+    names = [f.name for f in dataclasses.fields(map_state.MapArrays)]
+    out.arrays = map_arrays_from_jax({k: np.asarray(getattr(world.arrays, k)) for k in names}, device)
+    out.kf_obs_lm = np.asarray(world.kf_obs_lm, np.int64).copy()
+    out.kf_obs_r_lm = np.asarray(world.kf_obs_r_lm, np.int64).copy()
+    out.kf_frame_idx = np.asarray(world.kf_frame_idx, np.int64).copy()
+    out.kf_poses_host = np.asarray(world.kf_poses_host, np.float32).copy()
+    out.n_keyframes, out.n_landmarks = int(world.n_keyframes), int(world.n_landmarks)
+    return out
+
+
 def tracker_state_from_jax(state: dict, host: dict, device) -> tuple[dict, dict]:
     """A vslam_tpu tracker's device state (``StereoTracker._state``: pose,
     prev_pose, vel, bias, active{ids, pos, desc, maxdist, mindist, valid},

@@ -8,8 +8,10 @@ Ported: ``SlamMode.STEREO``, ``SlamMode.STEREO_IMU`` (IMU rows with
 absolute timestamps, the one-time gravity init) and ``SlamMode.MONOCULAR``
 (mono + IMU through ``track_mono_imu``: the tracker's bootstrap, the
 one-time init triangulation, then mono triangulation at every keyframe and
-no window BA), the synchronous local BA, ``async_ba=True`` and
-``global_ba`` (one BA over the whole map). The async BA keeps the JAX
+no window BA), the synchronous local BA, ``async_ba=True``,
+``global_ba`` (one BA over the whole map) and ``loop_closure=True``
+(models/loop_closure: detection after each keyframe's BA result, the pose
+graph and merge, then a rate-limited global-BA polish). The async BA keeps the JAX
 package's schedule (which decides which map each tracking step sees):
 phase A at the keyframe,
 the solve on the mapper's worker thread, the write-back behind the second
@@ -19,8 +21,7 @@ re-anchoring) before the third, at a fixed latency with
 ``ba_max_latency_frames``) without it. Everything runs on ``device`` (the
 GPU unless the caller asks for the CPU).
 
-Not ported, each raising NotImplementedError: ``shards`` (ROADMAP A12)
-and ``loop_closure=True`` (A10).
+Not ported, raising NotImplementedError: ``shards`` (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -55,13 +56,12 @@ class VSlamSystem:
     ):
         """`io_rectified=True` declares the incoming frames already
         undistorted + rectified, so the facade skips its remap even for an
-        unrectified config."""
+        unrectified config. `loop_closure`: detect revisits at every
+        keyframe and correct the whole trajectory (models/loop_closure)."""
         self.conf = conf
         self.mode = mode if mode is not None else conf.slam_mode
         if shards is not None and shards != 1:
             _not_ported("shards (the mesh-sharded local BA, ROADMAP A12)")
-        if loop_closure:
-            _not_ported("loop_closure=True (loop closure, ROADMAP A10)")
         self.device = torch.device(device)
         self.rig = cam.StereoCamera.from_config(conf)
         K = self.rig.left.intrinsics.astype(np.float32)
@@ -136,7 +136,17 @@ class VSlamSystem:
                 )
                 for c in (self.rig.left, self.rig.right)
             )
-        self.loop_closer = None  # loop closure is not ported (A10)
+        # after an applied closure, one global BA polishes the corrected
+        # map, but only once the map gained `polish_min_new_kfs` keyframes
+        # since the last polish (the graph and merge apply every time)
+        self.closure_polish = True
+        self.polish_min_new_kfs = 4
+        self._last_polish_nkf = -(1 << 30)  # the first closure always polishes
+        self.loop_closer = None
+        if loop_closure:
+            from vslam_torch.models import loop_closure as lc_mod
+
+            self.loop_closer = lc_mod.LoopCloser(self.world, K, self.rig.baseline, system=self)
 
         self._async = async_ba
         self._pending_ba: dict | None = None
@@ -194,10 +204,28 @@ class VSlamSystem:
         self._try_loop_closure(r["kf_slot"])
 
     def _try_loop_closure(self, kf_slot: int):
-        """Post-BA loop detection; a no-op while loop closure is not
-        ported (``loop_closer`` is always None)."""
+        """Post-BA loop detection for the newest keyframe. On an applied
+        closure the tracker re-anchors on the corrected map (reanchor also
+        re-gathers the active set), then (with ``closure_polish``, never in
+        mono: a projection-only global BA has no scale gauge) a global BA
+        polishes the structure across the seam, which the graph moved only
+        rigidly with its anchor keyframes."""
         if self.loop_closer is None:
             return
+        r = self.loop_closer.try_close(kf_slot)
+        if r is None:
+            return
+        self.tracker.reanchor(r["kf_slot"], r["old_pose"], r["new_pose"])
+        nkf = self.world.n_keyframes
+        if (
+            self.closure_polish
+            and self.mode != SlamMode.MONOCULAR
+            and nkf - self._last_polish_nkf >= self.polish_min_new_kfs
+        ):
+            g = self.mapper.run_global()
+            if g is not None:
+                self._last_polish_nkf = nkf
+                self.tracker.reanchor(g["kf_slot"], g["old_pose"], g["new_pose"])
 
     # ------------------------------------------------------------------
     def _imu_to_dt_rows(self, rows) -> np.ndarray | None:

@@ -10,6 +10,7 @@ Packed words are int64 holding 32 bits each (see ops/orb.py).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 N_BITS = 256
@@ -40,6 +41,15 @@ def unpack_signed(packed: torch.Tensor) -> torch.Tensor:
     bits = (packed.long()[..., :, None] >> shifts) & 1
     bits = bits.reshape(*packed.shape[:-1], N_BITS)
     return (bits * 2 - 1).to(torch.int8)
+
+
+def unpack_signed_np(packed: np.ndarray) -> np.ndarray:
+    """Host-side numpy twin of :func:`unpack_signed`: (..., 8) packed words
+    (int64 or uint32 holding 32 bits each) -> (..., 256) int8 +-1."""
+    p = np.asarray(packed).astype(np.int64)
+    bits = (p[..., :, None] >> np.arange(32, dtype=np.int64)) & 1
+    bits = bits.reshape(*p.shape[:-1], N_BITS)
+    return (bits * 2 - 1).astype(np.int8)
 
 
 def pack_signed(signed: torch.Tensor) -> torch.Tensor:

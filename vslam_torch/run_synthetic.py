@@ -7,12 +7,12 @@ fps + ATE against the scene's exact ground truth.
     python -m vslam_torch.run_synthetic                  # EuRoC-geometry stereo
     python -m vslam_torch.run_synthetic --scene kitti    # KITTI-geometry stereo
     python -m vslam_torch.run_synthetic --scene mono     # monocular-inertial, lateral
+    python -m vslam_torch.run_synthetic --scene loop     # closed circuit + loop closure
     python -m vslam_torch.run_synthetic --global-ba      # + one BA over the whole map
     python -m vslam_torch.run_synthetic --device cpu --frames 8
 
 Runs on the GPU unless ``--device cpu``. Not ported yet (NotImplementedError):
-``--scene loop`` (loop closure, ROADMAP A10) and ``--viz`` (the map viewer,
-A8).
+``--viz`` (the map viewer, ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -57,8 +57,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--viz", default=None, help="HTML map viewer output path")
     ap.add_argument("--global-ba", action="store_true")
     args = ap.parse_args(argv)
-    if args.scene == "loop":
-        raise NotImplementedError("vslam_torch: --scene loop (loop closure, ROADMAP A10) is not ported yet")
     if args.viz:
         raise NotImplementedError("vslam_torch: --viz (the map viewer, ROADMAP A8) is not ported yet")
 
@@ -71,9 +69,11 @@ def main(argv=None) -> dict:
         n = args.frames
     print(f"[scene] {desc}: {W}x{H} @ {fps} fps, {n} frames, {nfeat} features")
 
-    mono = args.scene == "mono"
+    mono, loop = args.scene == "mono", args.scene == "loop"
     t0 = time.time()
-    if mono:
+    if loop:
+        scene = synthetic.make_loop_scene(n_frames=n, width=W, height=H, fps=fps)
+    elif mono:
         scene = synthetic.make_scene(
             n_frames=n, n_points=900, width=W, height=H, fps=fps, seed=11,
             texture="distinct", motion="lateral",
@@ -87,7 +87,8 @@ def main(argv=None) -> dict:
 
     conf = ConfigFile.from_dict(config(W, H, fps, nfeat, 2 if mono else 1))
     sys_ = system_mod.VSlamSystem(
-        conf, async_ba=True, lm_capacity=1 << 15, kf_capacity=128, device=args.device
+        conf, async_ba=True, lm_capacity=1 << 15, kf_capacity=256 if loop else 128,
+        loop_closure=loop, device=args.device,
     )
     if mono:
         sys_.tracker.velocity = scene.velocities[0].astype(np.float32)
@@ -122,10 +123,13 @@ def main(argv=None) -> dict:
         trk = sys_.tracker
         result["bootstrap_views"] = len(trk.bootstrap_slots)
         result["init_frame"] = int(sys_.world.kf_frame_idx[trk.bootstrap_slots[-1]])
+    if loop:
+        result["loop_closures"] = sys_.loop_closer.closures
     print(
         f"[result] {n} frames in {wall:.1f}s ({n / wall:.1f} fps incl. host "
         f"rendering) | ATE RMSE vs exact GT: {ate:.4f} m | "
         f"{sys_.world.n_keyframes} keyframes, {sys_.world.n_landmarks} landmarks"
+        + (f" | loop closures: {sys_.loop_closer.closures}" if loop else "")
     )
     return result
 

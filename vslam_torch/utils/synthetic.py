@@ -5,7 +5,10 @@ The port's own copy of ``make_scene`` and what it needs from
 and IMU samples from the same seed (tests/test_torch_geometry_ops.py holds
 the two equal). A cloud of textured 3D landmarks is rendered into a moving
 stereo rig; a smooth analytic trajectory provides exact poses and exact
-IMU samples. The loop-circuit scene comes with the port of loop closure.
+IMU samples; ``make_loop_scene`` is the closed circuit of the loop-closure
+tests and bench. Two maps are built directly, without tracking: the
+corridor of the global-BA tests and the split map of the loop-closure
+tests.
 """
 
 from __future__ import annotations
@@ -569,6 +572,106 @@ def make_scene(
     )
 
 
+def make_loop_scene(
+    n_frames: int = 325,
+    n_points: int = 700,
+    width: int = 512,
+    height: int = 384,
+    fps: float = 10.0,
+    imu_hz: float = 200.0,
+    seed: int = 0,
+    radius: float = 6.0,
+    wall_radius: float = 10.0,
+    loops: float = 1.1,
+    noise_std: float = 0.0,
+    gain_drift: float = 0.0,
+) -> SyntheticScene:
+    """A CLOSED-CIRCUIT scene for end-to-end loop-closure validation: the
+    camera drives `loops` revolutions of a circle (radius m) inside a
+    cylindrical wall of inward-facing textured patches, returning to its
+    start pose with the same heading — the canonical revisit geometry.
+    Pure yaw accumulates heading drift that compounds into position error
+    over the lap, which a verified loop edge + pose graph must remove
+    (the reference's loop-closure state is vestigial, Map.h:122-127 —
+    this scene validates the real detector against live tracker output).
+
+    Geometry: camera at C + radius*(-cos wt, y_wobble, sin wt) heading
+    tangentially (yaw = wt); wall patches at angle phi on radii around
+    `wall_radius` with normals pointing at C, so the visible arc
+    (phi - yaw in ~[30, 90] deg) is always seen at benign (<40 deg)
+    incidence and 5-11 m depth, uniformly over the whole lap."""
+    rng = np.random.default_rng(seed)
+    dt = 1.0 / fps
+    omega = 2.0 * np.pi * loops / (n_frames * dt)
+    C = np.array([radius, 0.0, 0.0])
+
+    def pos(t):
+        t = np.asarray(t, np.float64)
+        th = omega * t
+        return np.stack(
+            [
+                C[0] - radius * np.cos(th),
+                0.15 * np.sin(0.4 * t),
+                radius * np.sin(th),
+            ],
+            axis=-1,
+        )
+
+    def rotvec(t):
+        t = np.asarray(t, np.float64)
+        return np.stack(
+            [np.zeros_like(t), omega * t, np.zeros_like(t)], axis=-1
+        )
+
+    ts = np.arange(n_frames) * dt
+    R = _np_expmap(rotvec(ts).reshape(-1, 3))
+    poses = np.tile(np.eye(4), (n_frames, 1, 1))
+    poses[:, :3, :3] = R
+    poses[:, :3, 3] = pos(ts)
+
+    K = np.array(
+        [[460.0, 0, width / 2.0], [0, 460.0, height / 2.0], [0, 0, 1.0]]
+    )
+    baseline = 0.12
+
+    # cylindrical wall: angles uniform over the lap, jittered radius/height
+    phi = rng.uniform(0.0, 2.0 * np.pi, n_points)
+    r_k = rng.uniform(0.85 * wall_radius, 1.15 * wall_radius, n_points)
+    h_k = rng.uniform(-2.4, 2.4, n_points)
+    pts = np.stack(
+        [C[0] - r_k * np.cos(phi), h_k, r_k * np.sin(phi)], axis=-1
+    )
+    # inward patch frames: normal points at the circuit axis
+    nrm = np.stack([np.cos(phi), np.zeros_like(phi), -np.sin(phi)], axis=-1)
+    e_y = np.tile(np.array([0.0, 1.0, 0.0]), (n_points, 1))
+    e_x = np.stack([-np.sin(phi), np.zeros_like(phi), -np.cos(phi)], axis=-1)
+    patch_R = np.stack([e_x, e_y, nrm], axis=-1).astype(np.float64)
+    patches = np.stack([_make_patch_coarse(rng) for _ in range(n_points)])
+
+    imu = _imu_from_analytic(n_frames, dt, imu_hz, pos, rotvec)
+    eps = 1e-4
+    vel = (pos(ts + eps) - pos(ts - eps)) / (2 * eps)
+
+    return SyntheticScene(
+        width=width,
+        height=height,
+        K=K,
+        baseline=baseline,
+        points_w=pts,
+        patches=patches,
+        times=ts,
+        poses_c2w=poses,
+        velocities=vel,
+        imu=imu,
+        imu_hz=imu_hz,
+        patch_R=patch_R,
+        patch_phys=0.5,
+        background=120.0,
+        noise_std=noise_std,
+        gain_drift=gain_drift,
+    )
+
+
 def corridor_map(
     n_kf: int, n_lm: int, keys_per_kf: int, obs_per_lm: int = 3, seed: int = 0,
     fx: float = 460.0, cx: float = 320.0, cy: float = 240.0, baseline: float = 0.12,
@@ -651,3 +754,91 @@ def corridor_world(n_kf: int, n_lm: int, keys_per_kf: int, *, device, **kw):
     world.n_keyframes, world.n_landmarks = n_kf, n_lm
     world.kf_frame_idx[:n_kf] = np.arange(n_kf)
     return world, c
+
+
+def split_map_world(n_kf: int = 20, n_pts: int = 400, seed: int = 3, scale_err: float = 1.0,
+                    *, device):
+    """The loop-closure tests' split map (the copy of
+    tests/test_loop_closure.py:276-370's world), built without tracking: a
+    trajectory that revisits its start, stored as two legs. Leg A
+    (keyframes 0 .. n_kf/2 - 1) is the ground truth; leg B is stored
+    behind a rigid drift T_err (and, for mono, a similarity scale
+    `scale_err` about the origin) and re-observes leg A's points under
+    duplicate landmark ids at the drifted positions. Every stored quantity
+    is self-consistent, so only a loop closure can find the offset.
+    Returns (WorldMap on `device`, true poses (n_kf, 4, 4), T_err, K)."""
+    import torch
+
+    from vslam_torch.geometry import se3
+    from vslam_torch.models import map_state
+    from vslam_torch.ops import hamming
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[460.0, 0, 160.0], [0, 460.0, 120.0], [0, 0, 1.0]], np.float32)
+    X = np.stack(
+        [rng.uniform(-4, 4, n_pts), rng.uniform(-3, 3, n_pts), rng.uniform(5, 11, n_pts)], -1
+    ).astype(np.float32)
+    desc = (rng.integers(0, 2, (n_pts, 256)) * 2 - 1).astype(np.int8)
+
+    half = n_kf // 2
+    true_poses = np.tile(np.eye(4, dtype=np.float32), (n_kf, 1, 1))
+    zmax = 2.0
+    for i in range(n_kf):
+        if i < half:
+            true_poses[i, :3, 3] = [0.0, 0.0, zmax * i / (half - 1)]
+        else:
+            true_poses[i, :3, 3] = [0.25, 0.0, zmax * (1.0 - (i - half) / (n_kf - half))]
+    xi = np.array([0.06, 0.22, 0.08, 0.015, 0.03, 0.01], np.float32)
+    T_err = se3.se3_expmap(torch.from_numpy(xi)).numpy()  # the drift
+
+    W, keys_per_kf, P = 32, 512, 2048
+    world = map_state.WorldMap(lm_capacity=P, kf_capacity=W, keys_per_kf=keys_per_kf,
+                               right_obs_per_kf=8, device=device)
+    # duplicate populations: leg A ids 0 .. n_pts-1 at X, leg B ids
+    # n_pts .. 2 n_pts-1 at the drifted positions
+    XB = scale_err * ((T_err[:3, :3] @ X.T).T + T_err[:3, 3])
+    lm_pos = np.zeros((P, 3), np.float32)
+    lm_pos[:n_pts] = X
+    lm_pos[n_pts : 2 * n_pts] = XB
+    lm_desc = np.zeros((P, 256), np.int8)
+    lm_desc[:n_pts] = desc
+    lm_desc[n_pts : 2 * n_pts] = desc
+    lm_valid = np.zeros(P, bool)
+    lm_valid[: 2 * n_pts] = True
+
+    stored = true_poses.copy()
+    stored[half:] = np.einsum("ij,kjl->kil", T_err, true_poses[half:])
+    stored[half:, :3, 3] *= scale_err  # similarity: t' = s (R t + t_err)
+
+    obs_uv = np.zeros((W, keys_per_kf, 3), np.float32)
+    obs_lm = np.full((W, keys_per_kf), -1, np.int64)
+    obs_desc = np.zeros((W, keys_per_kf, 256), np.int8)
+    obs_valid = np.zeros((W, keys_per_kf), bool)
+    for i in range(n_kf):
+        T_cw = np.linalg.inv(true_poses[i])
+        pc = (T_cw[:3, :3] @ X.T).T + T_cw[:3, 3]
+        u = K[0, 0] * pc[:, 0] / pc[:, 2] + K[0, 2]
+        v = K[1, 1] * pc[:, 1] / pc[:, 2] + K[1, 2]
+        vis = (pc[:, 2] > 1.0) & (u > 5) & (u < 315) & (v > 5) & (v < 235)
+        idx = np.nonzero(vis)[0][:keys_per_kf]
+        base = 0 if i < half else n_pts
+        obs_uv[i, : len(idx), 0] = u[idx]
+        obs_uv[i, : len(idx), 1] = v[idx]
+        obs_lm[i, : len(idx)] = base + idx
+        obs_desc[i, : len(idx)] = desc[idx]
+        obs_valid[i, : len(idx)] = True
+
+    kf_pose = np.tile(np.eye(4, dtype=np.float32), (W, 1, 1))
+    kf_pose[:n_kf] = stored
+    m = world.arrays
+    for name, a in (("kf_pose", kf_pose), ("kf_valid", np.arange(W) < n_kf), ("lm_pos", lm_pos),
+                    ("lm_desc", lm_desc), ("lm_valid", lm_valid), ("obs_uv", obs_uv),
+                    ("obs_lm", obs_lm), ("obs_valid", obs_valid)):
+        getattr(m, name).copy_(torch.from_numpy(a))
+    m.obs_desc.copy_(hamming.pack_signed(torch.from_numpy(obs_desc)))
+    world.kf_poses_host[:] = kf_pose
+    world.kf_obs_lm[:] = obs_lm
+    world.n_keyframes = n_kf
+    world.n_landmarks = 2 * n_pts
+    world.kf_frame_idx[:n_kf] = np.arange(n_kf)
+    return world, true_poses, T_err, K
