@@ -16,8 +16,10 @@ own line:
    on frame 0's full 8-level table, as the main path calls it, for the
    bench configuration, for the KITTI one (1248x384, 2048 features,
    seed 5; the synthetic driver's table), for the mono one (one view,
-   752x480, 1024 features, frame 0 of phase 13's scene) and for the loop
-   circuit (512x384, 1024 features, frame 0 of phase 16's scene). Then each table's
+   752x480, 1024 features, frame 0 of phase 13's scene), for the loop
+   circuit (512x384, 1024 features, frame 0 of phase 16's scene) and for
+   KITTI 00's published camera (1241x376, 2048 features, seed 6, every
+   level an odd width; phase 17's table). Then each table's
    one launch is
    timed: device time on a primed stream and host time per call
    (vslam_torch/kernels/timing.py), against the plain version, one
@@ -33,12 +35,13 @@ own line:
    1e-3 m / 1e-3 rad;
 6. system: VSlamSystem (tracker + the synchronous local mapper at every
    keyframe: triangulation, the 2-round Schur BA, the write-back) on the
-   card over the bench's 80-frame scene (752x480, seed 3, 900 points,
-   20 fps; the bench's tracker parameters and map capacities), frames
+   card over the first 40 frames of the bench's 80-frame scene (752x480,
+   seed 3, 900 points, 20 fps; the bench's tracker parameters and map
+   capacities), frames
    staged on the card: fps, per-frame and per-BA wall p50/p90, LM
    iterations, keyframes, landmarks, killed observations, ATE (must be
    <= 0.05 m; phase 4's tracker-only ATE beside it), extract_windows
-   launches (one per frame, 80) and plain calls on the card (0), peak
+   launches (one per frame, 40) and plain calls on the card (0), peak
    device memory; then the same run again, which must give the same
    trajectory bit for bit;
 7. BA: the last window that phase 6 solved, as a BAProblem, solved twice
@@ -59,31 +62,32 @@ own line:
    phase 6's, tracker frame p50/p90, the seconds the main thread was
    blocked joining the worker and the worker's wall per BA, BA runs,
    keyframes, landmarks, ATE (must be <= 0.05 m), extract_windows
-   launches (80) and plain calls (0); then the same run again, which must
+   launches (40) and plain calls (0); then the same run again, which must
    give the same trajectory bit for bit, and one readiness-polled run
    (deterministic_ba_latency off), which must complete with its ATE <=
    0.05 m and nothing pending after exit();
 10. async card vs CPU: the first 12 frames through the async facade on
    the card and on the CPU; the same keyframe slots and BA count, poses
    within 1e-3 m / 1e-3 rad;
-11. STEREO_IMU: the same 80 frames with slamMode 0, the IMU block of
+11. STEREO_IMU: the same 40 frames with slamMode 0, the IMU block of
    examples/run_synthetic.py, the scene's gravity and initial velocity
    and its IMU samples binned per frame, with the sync mapper: fps, ATE
    (must be <= 0.08 m), keyframes, BA runs, extract_windows launches
-   (80), the 15-dof solves per frame and the kernel launches and stream
+   (40), the 15-dof solves per frame and the kernel launches and stream
    syncs of one solve and of one preintegration (torch.profiler); then 8
    frames on the card and on the CPU, the same keyframe slots, poses
    within 1e-3 m / 1e-3 rad;
 12. driver: python -m vslam_torch.run_synthetic --scene kitti --global-ba
-   at its default 40 frames (1248x384, 2048 features, async BA, then one
+   --frames 20 (1248x384, 2048 features, async BA, then one
    BA over the whole map) and --scene mono --frames 24 on the card: their
    [result] fields, ATE <= 0.05 m (before and after the global BA),
-   extract_windows launches (40; mono: bootstrap views + tracked frames)
+   extract_windows launches (20; mono: bootstrap views + tracked frames)
    and plain calls (0);
 13. mono: VSlamSystem in slamMode 2 (MonoTracker: the IMU bootstrap, the
    init triangulation, mono triangulation at every keyframe) on the card
    over the bench's lateral mono scene (752x480, seed 11, 900 points,
-   20 fps, 60 frames, distinct texture; bench.py:175-241), frames staged on
+   20 fps, the first 40 of its 60 frames, distinct texture;
+   bench.py:175-241), frames staged on
    the card: fps, frame p50/p90, bootstrap views and gates, the landmark
    count of every mono triangulation and the init's own (the call made
    while needs_init_triangulation is set), keyframes, landmarks, ATE (must be <= 0.05 m, bench.py:418's
@@ -123,7 +127,24 @@ own line:
    pairs and n_merged, poses within 1e-4 m / 1e-4 rad); one
    optimize_chain on the 2048-pose chain of tests/test_loop_closure.py:224
    (wall, iterations, launches and syncs per iteration, the drift it
-   recovers: > 90%).
+   recovers: > 90%);
+17. dataset: python -m vslam_torch.run_dataset (main called in-process) on
+   frames written as uint8 PNGs. KITTI layout at KITTI 00's 1241x376
+   (40 frames, seed 6, 900 points, 10 fps; config_kitti_00.yaml's FE block,
+   the scene's intrinsics and baseline): run (a) with async BA, global BA,
+   the live viewer every 5 keyframes, the PLY, overlays every 10 frames
+   and a checkpoint every 5 keyframes (ATE <= 0.08 m, 40 launches, 0 plain
+   calls, the outputs present; the last checkpoint loaded into a CPU world
+   torch.equal to the card's map when it was written); run (b) to frame
+   20 with a checkpoint, then --resume to frame 40 (within 0.05 m of run
+   (a)); the native reader against PIL on 12 frames (identical
+   trajectories). EuRoC layout, STEREO_IMU (752x480, seed 3, 30 frames
+   from rest, MH_01's FE and IMU blocks, an unrectified identity rig, the
+   scene's gravity): the host uint8 remap of the native reader and the
+   device remap (ATE <= 0.08 m each, 30 launches). Where the machine has
+   no g++ or no png.h, the native reader cannot build: the runs take
+   --no-prefetch, the build error is printed and the native-only checks
+   are skipped.
 
 Frames are rendered on the host by 8 processes forked at start-up,
 before CUDA is initialized, and stopped at the end.
@@ -139,19 +160,22 @@ import contextlib
 import copy
 import json
 import multiprocessing
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from vslam_torch import kernels, run_synthetic
+from vslam_torch import kernels, native, run_dataset, run_synthetic
 from vslam_torch.geometry import se3, triangulate
 from vslam_torch.kernels import timing
 from vslam_torch.models import local_mapper, loop_closure, map_state, pose_graph, reloc, system, tracker
 from vslam_torch.ops import extract, imu, lm, patches, pyramid, schur
-from vslam_torch.utils import datasets, synthetic, trajectory
+from vslam_torch.utils import checkpoint as ckpt_io, datasets, synthetic, trajectory
 from vslam_torch.utils.config import ConfigFile
 
 # the bench configuration (bench.py:341-345) and its scene
@@ -165,16 +189,19 @@ ATE_GATE_M = 0.05
 CPU_FRAMES = 8
 POSE_TOL_M, POSE_TOL_RAD = 1e-3, 1e-3
 # the system phases: the bench's scene and map capacities (bench.py:65-72, 341-345)
-SYS_FRAMES, SYS_CPU_FRAMES = 80, 12
+# phases 6, 9 and 11 run the first 40 of the 80-frame scene, phase 13 the
+# first 40 of its 60 and phase 12's KITTI driver 20 frames: with phase 17
+# the whole script took 1265 s of its 1200 s limit (PERF.md section 4)
+SYS_SCENE_FRAMES, SYS_FRAMES, SYS_CPU_FRAMES = 80, 40, 12
 SYS_CAPS = dict(lm_capacity=1 << 15, kf_capacity=128)
 BA_TOL_M, BA_TOL_RAD, CHI2_BAND = 1e-4, 1e-4, 1e-3
 # the STEREO_IMU phase: tests/test_system.py:229's gate, 8 frames card vs CPU
 IMU_ATE_GATE_M, IMU_CPU_FRAMES = 0.08, 8
 # the synthetic driver's KITTI scene (vslam_torch/run_synthetic.py)
-KITTI_W, KITTI_H, KITTI_SEED, KITTI_FEATURES, KITTI_FRAMES = 1248, 384, 5, 2048, 40
+KITTI_W, KITTI_H, KITTI_SEED, KITTI_FEATURES, KITTI_FRAMES = 1248, 384, 5, 2048, 20
 # the bench's mono-IMU scene (bench.py:175-241) and its gate (bench.py:418)
-MONO_SEED, MONO_FRAMES, MONO_CPU_FRAMES, MONO_DRIVER_FRAMES = 11, 60, 16, 24
-MONO_SCENE = dict(n_points=900, width=WIDTH, height=HEIGHT, fps=20.0, seed=MONO_SEED,
+MONO_SEED, MONO_FRAMES, MONO_CPU_FRAMES, MONO_DRIVER_FRAMES = 11, 40, 16, 24
+MONO_SCENE = dict(n_frames=60, n_points=900, width=WIDTH, height=HEIGHT, fps=20.0, seed=MONO_SEED,
                   texture="distinct", motion="lateral")
 # recovery (tests/test_tracking.py:323-409's sequences on the bench scene)
 RECOVERY_GATE_M = 0.15
@@ -191,6 +218,27 @@ LOOP_ATE_GATE_M, LOOP_GBA_FLOOR_M = 0.06, 0.05
 SPLIT_CASES = {"stereo": (1.0, 0.12), "mono": (0.9, 0.0)}
 # the 2048-pose chain (tests/test_loop_closure.py:224-271)
 CHAIN_P = 2048
+# phase 17: the dataset driver (vslam_torch/run_dataset.py) on frames written
+# as uint8 PNGs in the KITTI and EuRoC layouts. KITTI 00's published camera
+# and FE block (configs/config_kitti_00.yaml:33-45); the EuRoC layout gets
+# MH_01's FE and IMU blocks (configs/config_MH_01.yaml:9-15, 96-102). Seed
+# 6: on seed 5's 8-bit frames at this shape both packages lose track at
+# frame 25 (tests/test_torch_run_dataset.py::test_kitti00_shape_against_jax)
+DS_KITTI_W, DS_KITTI_H, DS_KITTI_SEED, DS_KITTI_FRAMES = 1241, 376, 6, 40
+DS_KITTI_FE = dict(nFeatures=2000, nLevels=8, imScale=1.2, edgeThreshold=19,
+                   maxFastThreshold=20, minFastThreshold=7)
+# the EuRoC run starts from rest (synthetic.make_scene's ramp_tau, as the
+# on-disk EuRoC drives of tests/test_fullscale.py do): the driver, like the
+# reference's, starts the IMU solve at zero velocity, as a real EuRoC
+# capture does; a scene at full speed from frame 0 leaves STEREO_IMU stuck
+DS_EUROC_FRAMES, DS_EUROC_RAMP_TAU = 30, 0.5
+DS_EUROC_FE = dict(nFeatures=1000, nLevels=8, imScale=1.2, edgeThreshold=19,
+                   maxFastThreshold=20, minFastThreshold=7)
+DS_EUROC_IMU = dict(Hz=200, gyroscope_noise_density=1.6968e-04, gyroscope_random_walk=1.9393e-05,
+                    accelerometer_noise_density=2.0e-3, accelerometer_random_walk=3.0e-3)
+DS_RESUME_AT, DS_DECODE_FRAMES = 20, 12
+DS_ATE_GATE_M = 0.08  # tests/test_driver.py:118's gate for uint8 PNG input
+DS_RESUME_GAP_M = 0.05  # tests/test_driver.py:150
 
 
 T0 = time.perf_counter()
@@ -302,9 +350,21 @@ def phase_kernels_kitti(dev, smi) -> dict:
     return {"max_abs_err": max(errs), **t}
 
 
+def phase_kernels_kitti00(dev, smi) -> dict:
+    """extract_windows_levels on frame 0's table of phase 17's KITTI run at
+    KITTI 00's published 1241x376 (odd widths at every level)."""
+    scene = synthetic.make_scene(n_frames=1, n_points=900, width=DS_KITTI_W, height=DS_KITTI_H,
+                                 fps=10.0, seed=DS_KITTI_SEED)
+    cases = _level_inputs(scene, dev, DS_KITTI_H, DS_KITTI_W, KITTI_FEATURES, DS_KITTI_SEED)
+    agree, errs = _agreement()
+    t = _table(cases, agree, smi, f"KITTI 00 {DS_KITTI_W}x{DS_KITTI_H}, {KITTI_FEATURES} keys, "
+                                  "frame 0, 8 levels, L+R, one launch")
+    return {"max_abs_err": max(errs), **t}
+
+
 def phase_kernels_mono(dev, smi) -> dict:
     """extract_windows_levels on frame 0's one-view table of the mono scene."""
-    scene = synthetic.make_scene(n_frames=1, **MONO_SCENE)
+    scene = synthetic.make_scene(**{**MONO_SCENE, "n_frames": 1})
     cases = _level_inputs(scene, dev, seed=MONO_SEED, mono=True)
     agree, errs = _agreement()
     t = _table(cases, agree, smi, f"mono {WIDTH}x{HEIGHT}, {PARAMS['n_features']} keys, frame 0, "
@@ -809,7 +869,7 @@ def phase_async(scene, pairs, sync_fps) -> int:
 
 
 def phase_imu(scene, pairs, bins) -> int:
-    """STEREO_IMU with the sync mapper over the 80 frames, then the 15-dof
+    """STEREO_IMU with the sync mapper over the 40 frames, then the 15-dof
     solve and the preintegration alone (the last of each the run made)."""
     frames = _stage(pairs)
     sys_ = _system(scene, "cuda", imu=True)
@@ -883,7 +943,7 @@ def _driver(argv) -> tuple[dict, int]:
 def phase_driver() -> tuple[int, int]:
     """The driver's KITTI scene with a global BA after it, then its mono
     scene for 24 frames."""
-    r, launches = _driver(["--scene", "kitti", "--global-ba"])
+    r, launches = _driver(["--scene", "kitti", "--global-ba", "--frames", str(KITTI_FRAMES)])
     if r["frames"] != KITTI_FRAMES or launches != KITTI_FRAMES:
         raise AssertionError(f"driver: {r['frames']} frames, {launches} launches")
     if not (r["ate_before_global_ba_m"] <= ATE_GATE_M and np.isfinite(r["global_ba_error"])):
@@ -930,7 +990,7 @@ def _run_mono(sys_, frames, bins):
 
 
 def phase_mono() -> int:
-    scene = synthetic.make_scene(n_frames=MONO_FRAMES, **MONO_SCENE)
+    scene = synthetic.make_scene(**MONO_SCENE)
     t0 = time.perf_counter()
     imgs = _render(scene, MONO_FRAMES, stereo=False)
     render_s = time.perf_counter() - t0
@@ -1075,7 +1135,7 @@ def phase_recovery() -> int:
 
 
 def phase_global_ba(sys_, scene):
-    """VSlamSystem.global_ba after the 80-frame run, then the map-scale
+    """VSlamSystem.global_ba after phase 6's run, then the map-scale
     corridor map."""
     m = sys_.mapper
     gt = scene.poses_c2w[:SYS_FRAMES]
@@ -1376,6 +1436,218 @@ def phase_pose_graph():
         raise AssertionError(f"2048-pose chain: drift {pre} -> {post} m, max error {errs.max()} m")
 
 
+def _render_pngs(scene, frames, paths):
+    """Worker: render frames (L and R) of `scene` and write each as a uint8
+    PNG at paths[f] = (left path, right path)."""
+    from PIL import Image
+
+    for f in frames:
+        for right, p in enumerate(paths[f]):
+            Image.fromarray(np.clip(scene.render(f, right=bool(right)), 0, 255).astype(np.uint8)).save(p)
+
+
+def _write_pngs(scene, paths: list):
+    """Frames 0..len(paths)-1 of `scene` as PNGs, written by the pool."""
+    chunks = [c for c in np.array_split(np.arange(len(paths)), 4 * RENDER_WORKERS) if len(c)]
+    list(_POOL.map(_render_pngs, [scene] * len(chunks), chunks, [paths] * len(chunks)))
+
+
+def _cam(K) -> dict:
+    return {"fx": float(K[0, 0]), "fy": float(K[1, 1]), "cx": float(K[0, 2]), "cy": float(K[1, 2])}
+
+
+def _write_config(path, cfg: dict) -> str:
+    """The config as JSON, which the YAML loader reads as well."""
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return str(path)
+
+
+def _kitti_layout(root, scene, n) -> str:
+    """image_0/, image_1/, times.txt and the config: KITTI 00's FE block with
+    the scene's intrinsics and baseline, rectified, slamMode 1."""
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(root, sub))
+    _write_pngs(scene, [tuple(os.path.join(root, s, f"{f:06d}.png") for s in ("image_0", "image_1"))
+                        for f in range(n)])
+    np.savetxt(os.path.join(root, "times.txt"), scene.times[:n])
+    return _write_config(os.path.join(root, "config.json"), {
+        "rectified": True, "slamMode": 1, "dataset": "KITTI", "imagesPath": root,
+        "fileExtension": ".png", "Camera_l": _cam(scene.K), "Camera_r": _cam(scene.K),
+        "Camera": {"width": scene.width, "height": scene.height, "fps": 10.0, "bl": float(scene.baseline)},
+        "FE": DS_KITTI_FE,
+    })
+
+
+def _euroc_layout(root, scene, n) -> str:
+    """mav0/cam0, mav0/cam1 (data/ and data.csv, nanosecond timestamps),
+    mav0/imu0/data.csv and the config: MH_01's FE and IMU blocks, slamMode 0,
+    an unrectified rig (K the scene's, D = 0, R = I, P = [K|0]) and the
+    scene's gravity (the synthetic body is not EuRoC-mounted)."""
+    mav0 = os.path.join(root, "mav0")
+    ns = [int(round(t * 1e9)) for t in scene.times[:n]]
+    for cam in ("cam0", "cam1"):
+        os.makedirs(os.path.join(mav0, cam, "data"))
+        with open(os.path.join(mav0, cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n" + "".join(f"{t},{t}.png\n" for t in ns))
+    _write_pngs(scene, [tuple(os.path.join(mav0, c, "data", f"{t}.png") for c in ("cam0", "cam1"))
+                        for t in ns])
+    os.makedirs(os.path.join(mav0, "imu0"))
+    with open(os.path.join(mav0, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+        for row in scene.imu:
+            f.write(f"{int(round(row[0] * 1e9))}," + ",".join(f"{v:.17g}" for v in row[1:7]) + "\n")
+    K = scene.K.astype(np.float64)
+    raw = {**_cam(K), "K": {"rows": 3, "cols": 3, "data": K.reshape(-1).tolist()},
+           "D": {"rows": 1, "cols": 5, "data": [0.0] * 5},
+           "R": {"rows": 3, "cols": 3, "data": np.eye(3).reshape(-1).tolist()},
+           "P": {"rows": 3, "cols": 4, "data": np.hstack([K, np.zeros((3, 1))]).reshape(-1).tolist()}}
+    return _write_config(os.path.join(root, "config.json"), {
+        "rectified": False, "slamMode": 0, "dataset": "EuRoC", "imagesPath": mav0,
+        "fileExtension": ".png", "Camera_l": raw, "Camera_r": raw,
+        "Camera": {"width": scene.width, "height": scene.height, "fps": 20.0, "bl": float(scene.baseline)},
+        "FE": DS_EUROC_FE,
+        "IMU": {**DS_EUROC_IMU, "gravity": synthetic.GRAVITY_W.astype(float).tolist()},
+    })
+
+
+def _dataset_run(argv) -> tuple[dict, int]:
+    """run_dataset.main on the card: its result, the extract_windows launches
+    of the run; no plain window gather may run."""
+    with _plain_calls() as plain_devices:
+        patches.LAUNCHES = 0
+        r = run_dataset.main(argv)
+        torch.cuda.synchronize()
+        launches = patches.LAUNCHES
+    if plain_devices:
+        raise AssertionError(f"run_dataset {argv}: {len(plain_devices)} plain calls ({plain_devices})")
+    return r, launches
+
+
+def _native_io() -> tuple[bool, str | None]:
+    """Whether phase 17 must run on the native reader: it must wherever the
+    machine has g++ and libpng's header (then it has to build); else the
+    runs take --no-prefetch, and the build error is printed."""
+    toolchain = shutil.which("g++") is not None and os.path.isfile("/usr/include/png.h")
+    if toolchain and not native.available():
+        raise AssertionError(f"native IO failed to build with g++ and png.h present: {native.build_error()}")
+    return native.available(), native.build_error()
+
+
+def phase_dataset() -> tuple[int, int]:
+    """Phase 17: the dataset driver on KITTI 00's 1241x376 and on the EuRoC
+    layout with STEREO_IMU."""
+    use_native, build_error = _native_io()
+    io = [] if use_native else ["--no-prefetch"]
+    say("dataset_io", native=use_native, build_error=build_error)
+    with tempfile.TemporaryDirectory(prefix="vslam_dataset_") as tmp:
+        return _phase_dataset_kitti(tmp, io), _phase_dataset_euroc(tmp, io)
+
+
+def _phase_dataset_kitti(tmp, io) -> int:
+    n = DS_KITTI_FRAMES
+    t0 = time.perf_counter()
+    scene = synthetic.make_scene(n_frames=n, n_points=900, width=DS_KITTI_W, height=DS_KITTI_H,
+                                 fps=10.0, seed=DS_KITTI_SEED)
+    root = os.path.join(tmp, "kitti")
+    cfg = _kitti_layout(root, scene, n)
+    write_s = time.perf_counter() - t0
+    p = lambda name: os.path.join(tmp, name)  # noqa: E731
+    # each checkpoint's map as the card held it when it was written
+    saved, save = [], ckpt_io.save_checkpoint
+
+    def save_and_snapshot(path, world, trk=None):
+        save(path, world, trk)
+        saved.append({k: v.clone() for k, v in vars(world.arrays).items()})
+
+    ckpt_io.save_checkpoint = save_and_snapshot
+    try:
+        a, launches = _dataset_run([cfg, *io, "--out", p("a.txt"), "--async-ba", "--global-ba",
+                                    "--viz", p("m.html"), "--viz-every", "5", "--ply", p("m.ply"),
+                                    "--debug-dir", p("d"), "--debug-every", "10",
+                                    "--checkpoint", p("c.npz"), "--checkpoint-every", "5"])
+    finally:
+        ckpt_io.save_checkpoint = save
+    gt = scene.poses_c2w[:n]
+    traj_a = trajectory.load_kitti_trajectory(p("a.txt"))
+    ate = trajectory.ate_rmse(traj_a, gt, align=False)
+    overlays = sorted(os.listdir(p("d")))
+    # the live viewer's .json appears once 5 keyframes are in
+    names = ("m.html", "m.ply", "c.npz") + (("m.json",) if a["keyframes"] >= 5 else ())
+    outputs = {name: os.path.getsize(p(name)) for name in names}
+    # the card's last checkpoint, loaded into a CPU world
+    cpu_world = map_state.WorldMap(keys_per_kf=system._round_pow2(DS_KITTI_FE["nFeatures"]), device="cpu")
+    t1 = time.perf_counter()
+    ckpt_io.load_checkpoint(p("c.npz"), cpu_world)
+    cpu_load_s = time.perf_counter() - t1
+    unequal = [k for k, v in vars(cpu_world.arrays).items() if not torch.equal(v, saved[-1][k].cpu())]
+    say("dataset_kitti", argv="run (a)", width=DS_KITTI_W, height=DS_KITTI_H, write_pngs_s=write_s,
+        **a, ate_m=ate, extract_windows_launches=launches, overlays=overlays, outputs_bytes=outputs,
+        checkpoint_cpu_load_s=cpu_load_s, checkpoint_arrays_unequal_on_cpu=unequal)
+    if launches != n or a["frames"] != n:
+        raise AssertionError(f"dataset run (a): {a['frames']} frames, {launches} launches, want {n}")
+    if not ate <= DS_ATE_GATE_M or not np.isfinite(a["global_ba_error"]):
+        raise AssertionError(f"dataset run (a): ATE {ate} m, global BA error {a['global_ba_error']}")
+    # a mid-run checkpoint once 5 keyframes are in (the last few keyframes
+    # may land in the final flush), and the one at exit
+    want_ckpts = 2 if a["keyframes"] >= 8 else 1
+    if overlays != [f"frame_{f:06d}.png" for f in range(10, n, 10)] or a["checkpoints"] < want_ckpts or unequal:
+        raise AssertionError(f"dataset run (a) outputs: {overlays}, {a['checkpoints']} checkpoints, {unequal}")
+
+    # run (b): stop at frame 20 with a checkpoint, resume to the end
+    b, launches_b = _dataset_run([cfg, *io, "--out", p("b.txt"), "--limit", str(DS_RESUME_AT),
+                                  "--checkpoint", p("b.npz")])
+    r, launches_r = _dataset_run([cfg, *io, "--out", p("r.txt"), "--resume", p("b.npz")])
+    traj_r = trajectory.load_kitti_trajectory(p("r.txt"))
+    gap = float(np.abs(traj_r[:, :3, :] - traj_a[:, :3, :]).max())
+    ate_r = trajectory.ate_rmse(traj_r, gt, align=False)
+    say("dataset_kitti", argv="run (b) + resume", part_frames=b["frames"], resumed_from=r["resumed_from"],
+        resumed_frames=r["frames"], checkpoint_bytes=b["checkpoint_bytes"],
+        checkpoint_write_s=b["checkpoint_write_s"], checkpoint_load_s=r["checkpoint_load_s"],
+        resume_gap_m=gap, ate_resumed_m=ate_r, launches=[launches_b, launches_r],
+        fps=[b["fps"], r["fps"]])
+    if r["resumed_from"] != DS_RESUME_AT or traj_r.shape != (n, 4, 4) or not gap <= DS_RESUME_GAP_M:
+        raise AssertionError(f"resume: from {r['resumed_from']}, {traj_r.shape}, gap {gap} m")
+    if launches_b + launches_r != n:
+        raise AssertionError(f"resume: {launches_b} + {launches_r} launches, want {n}")
+
+    # decode: the native reader and PIL give the same trajectory bit for bit
+    if io:
+        say("dataset_decode", skipped="native IO unavailable")
+        return launches
+    d = {}
+    for name, extra in (("native", []), ("pil", ["--no-prefetch"])):
+        rr, _ = _dataset_run([cfg, *extra, "--out", p(f"{name}.txt"), "--limit", str(DS_DECODE_FRAMES)])
+        d[name] = (rr, trajectory.load_kitti_trajectory(p(f"{name}.txt")))
+    same = np.array_equal(d["native"][1], d["pil"][1])
+    say("dataset_decode", frames=DS_DECODE_FRAMES, identical=same,
+        fps={k: v[0]["fps"] for k, v in d.items()},
+        frame_p50_ms={k: v[0]["frame_p50_ms"] for k, v in d.items()},
+        frame_p90_ms={k: v[0]["frame_p90_ms"] for k, v in d.items()})
+    if not same or d["native"][0]["io"] != "native" or d["pil"][0]["io"] != "pil":
+        raise AssertionError("native and PIL decode gave different trajectories")
+    return launches
+
+
+def _phase_dataset_euroc(tmp, io) -> int:
+    n = DS_EUROC_FRAMES
+    scene = synthetic.make_scene(n_frames=n, n_points=900, width=WIDTH, height=HEIGHT, fps=20.0, seed=SEED,
+                                 ramp_tau=DS_EUROC_RAMP_TAU)
+    root = os.path.join(tmp, "euroc")
+    cfg = _euroc_layout(root, scene, n)
+    launches = 0
+    routes = [("host uint8 remap", [])] if not io else []
+    for route, extra in routes + [("device f32 remap", ["--no-prefetch"])]:
+        out = os.path.join(tmp, f"euroc_{len(extra)}.txt")
+        r, k = _dataset_run([cfg, *extra, "--out", out])
+        ate = trajectory.ate_rmse(trajectory.load_kitti_trajectory(out), scene.poses_c2w[:n], align=False)
+        say("dataset_euroc", route=route, **r, ate_m=ate, extract_windows_launches=k)
+        if r["mode"] != "STEREO_IMU" or r["frames"] != n or k != n or not ate <= IMU_ATE_GATE_M:
+            raise AssertionError(f"dataset EuRoC ({route}): {r}, {k} launches, ATE {ate} m")
+        launches = k
+    return launches
+
+
 def main() -> int:
     global _POOL
     with concurrent.futures.ProcessPoolExecutor(
@@ -1394,10 +1666,11 @@ def run() -> int:
                                  fps=20.0, seed=SEED)
     t = phase_kernels(scene, torch.device("cuda"), smi)
     t_kitti = phase_kernels_kitti(torch.device("cuda"), smi)
+    t_kitti00 = phase_kernels_kitti00(torch.device("cuda"), smi)
     t_mono = phase_kernels_mono(torch.device("cuda"), smi)
     launches_trk, pairs, ate_trk = phase_main_path(scene)
     phase_card_vs_cpu(scene, pairs)
-    sys_scene = synthetic.make_scene(n_frames=SYS_FRAMES, n_points=900, width=WIDTH,
+    sys_scene = synthetic.make_scene(n_frames=SYS_SCENE_FRAMES, n_points=900, width=WIDTH,
                                      height=HEIGHT, fps=20.0, seed=SEED)
     launches, sys_pairs, window, sys_, sync_fps = phase_system(sys_scene, ate_trk)
     phase_ba(window, sys_)
@@ -1414,6 +1687,7 @@ def run() -> int:
     launches_loop = phase_loop(loop_scene)
     phase_loop_card_vs_cpu()
     phase_pose_graph()
+    launches_ds_kitti, launches_ds_euroc = phase_dataset()
     report = {"kernels": [{
         "name": "extract_windows",
         "route": "cuda",
@@ -1424,7 +1698,8 @@ def run() -> int:
                               "async_system": launches_async, "stereo_imu": launches_imu,
                               "kitti_driver": launches_kitti, "mono_driver": launches_driver_mono,
                               "mono_system": launches_mono, "relocalization": launches_recovery,
-                              "loop_circuit": launches_loop},
+                              "loop_circuit": launches_loop, "dataset_kitti": launches_ds_kitti,
+                              "dataset_euroc": launches_ds_euroc},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],
@@ -1437,7 +1712,7 @@ def run() -> int:
         **{f"{name}_table": {k: tab[k] for k in (
             "max_abs_err", "launches_per_frame", "device_ms", "host_ms_per_call", "plain_ms",
             "bound_ms", "library_ms")} for name, tab in (("kitti", t_kitti), ("mono", t_mono),
-                                                         ("loop", t_loop))},
+                                                         ("loop", t_loop), ("kitti00", t_kitti00))},
     }]}
     print(smi)
     print(json.dumps(report))

@@ -1,10 +1,11 @@
 """The port's synthetic driver (``python -m vslam_torch.run_synthetic``) on
 the CPU: a few frames of the EuRoC-geometry scene at its full width
 through the async facade (the loop circuit with loop closure on), the
-scene table and config it shares with examples/run_synthetic.py, and the
-option that is not ported yet."""
+scene table and config it shares with examples/run_synthetic.py, --viz,
+and the dataset driver's option that is not ported yet."""
 
 import importlib.util
+import json
 import os
 
 import numpy as np
@@ -12,7 +13,7 @@ import pytest
 import torch
 import yaml
 
-from vslam_torch import run_synthetic
+from vslam_torch import run_dataset, run_synthetic
 from vslam_torch.utils.config import ConfigFile
 
 torch.set_num_threads(2)  # xdist runs several workers on one box
@@ -78,7 +79,22 @@ def test_driver_scenes_and_config_match_the_example(tmp_path):
         assert ConfigFile.from_dict(theirs).slam_mode == 1
 
 
-@pytest.mark.parametrize("argv, item", [pytest.param(["--viz", "m.html"], "A8", id="argv1-A8")])
-def test_driver_options_not_ported_raise(argv, item):
+def test_driver_viz_writes_the_viewer(tmp_path, capsys):
+    """--viz writes the map viewer after the run (examples/run_synthetic.py:125-131):
+    one frustum per keyframe, the trajectory, the landmarks."""
+    html = tmp_path / "m.html"
+    r = run_synthetic.main(["--device", "cpu", "--frames", "4", "--viz", str(html)])
+    assert f"[viz] -> {html}" in capsys.readouterr().out
+    page = html.read_text()
+    data = json.loads(page[page.index("const DATA = ") + 13 : page.index(";\n", page.index("const DATA = "))])
+    assert len(data["frusta"]) == r["keyframes"] and len(data["traj"]) == 4
+    assert len(data["points"]) == len(data["active"]) > 100
+
+
+@pytest.mark.parametrize("argv, item", [pytest.param(["--shards", "2"], "A12", id="shards-A12")])
+def test_driver_options_not_ported_raise(tmp_path, argv, item):
+    """The dataset driver's --shards N > 1 (the mesh-sharded BA) raises."""
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text(yaml.safe_dump(run_synthetic.config(64, 48, 10.0, 128, 1)))
     with pytest.raises(NotImplementedError, match=item):
-        run_synthetic.main(["--device", "cpu"] + argv)
+        run_dataset.main([str(cfg), "--device", "cpu"] + argv)

@@ -209,8 +209,9 @@ def test_unported_paths_raise(scene):
     """A StereoTracker given no right image (with and without IMU rows, on
     a stereo-inertial tracker too) is refused and points to MonoTracker,
     which takes the same single image; relocalization on an empty map
-    finds nothing (the caller then re-seeds); the debug hook raises; a
-    tracker on another device than its map is refused."""
+    finds nothing (the caller then re-seeds); the debug hook fires once
+    per processed frame with its stats; a tracker on another device than
+    its map is refused."""
     imu_cfg = ttr.ImuConfig(
         gyro_noise=1.7e-4, accel_noise=2e-3, gyro_walk=1.9e-5, accel_walk=3e-3, hz=200.0,
         T_bc=np.eye(4, dtype=np.float32), gravity_w=np.array([0.0, 0.0, -9.81], np.float32),
@@ -233,8 +234,14 @@ def test_unported_paths_raise(scene):
     assert tm.bootstrap_slots == tm.gate_slots == [0] and tm.world.n_keyframes == 1
     with pytest.raises(ValueError, match="one image"):
         tm.track(np.stack(scene.frames[1]))
-    with pytest.raises(NotImplementedError, match="debug hook"):
-        tt.debug_hook = print
+    fired = []
+    th = _torch_tracker(scene)
+    th.debug_hook = lambda frame_idx, pose, outputs, stats: fired.append((frame_idx, stats))
+    for f in range(2):
+        th.track(*scene.frames[f])
+    th.flush()
+    assert [f for f, _ in fired] == [1] and fired[0][1] is th.last_stats
+    assert fired[0][1]["n_inliers"] >= 50
     with pytest.raises(ValueError, match="device"):
         ttr.StereoTracker(
             scene.K, scene.baseline, 320, 240, tms.WorldMap(**WORLD, device="cpu"),

@@ -166,7 +166,10 @@ class VSlamSystem:
 
     # ------------------------------------------------------------------
     def _frame(self, img) -> torch.Tensor:
-        return torch.as_tensor(img).to(self.device, torch.float32)
+        """The frame as a float32 tensor on the device. A uint8 frame (the
+        native reader's) crosses to the device as uint8, a quarter of the
+        bytes, and is converted there."""
+        return torch.as_tensor(img).to(self.device).to(torch.float32)
 
     def _rectify(self, left, right):
         """The frame pair, remapped on the device when the rig needs it.
@@ -260,9 +263,10 @@ class VSlamSystem:
             self._consume_ba_results()
         n_kf_before = len(self.tracker.new_kf_slots)
         if isinstance(left, torch.Tensor) or isinstance(right, torch.Tensor):
-            pose = self.tracker.track(torch.stack([self._frame(left), self._frame(right)]), imu=imu)
+            LR = torch.stack([self._frame(left), self._frame(right)])
         else:
-            pose = self.tracker.track(left, right, imu)
+            LR = self._frame(np.stack([left, right]))  # one host-to-device copy
+        pose = self.tracker.track(LR, imu=imu)
         self._advance_ba()  # the next phase of an async BA, behind this frame's step
         self._dispatch_ba(n_kf_before)
         return pose
@@ -279,7 +283,7 @@ class VSlamSystem:
         if self._async:
             self._consume_ba_results()
         n_kf_before = len(self.tracker.new_kf_slots)
-        pose = self.tracker.track(left, imu=imu)
+        pose = self.tracker.track(self._frame(left), imu=imu)
         if getattr(self.tracker, "needs_init_triangulation", False):
             ids = self.mapper.find_new_points(self.tracker.new_kf_slots[-1], mono=True)
             self.tracker.add_active(ids)

@@ -16,8 +16,8 @@ preintegration and the 15-dof visual-inertial solve on every frame), the
 monocular-inertial :class:`MonoTracker` (IMU bootstrap, then the same frame
 step on one image), and lost-tracking recovery: after ``reseed_after``
 refused solves the tracker relocalizes on the old map (models/reloc.py)
-or, failing that, re-seeds a stereo map at the dead-reckoned pose. The
-debug hook is not ported and raises.
+or, failing that, re-seeds a stereo map at the dead-reckoned pose, and the
+per-frame ``debug_hook`` (utils/debug_view).
 """
 
 from __future__ import annotations
@@ -648,15 +648,11 @@ class StereoTracker:
         self._kf_pending = None
         # cumulative BA re-anchoring delta
         self._D = np.eye(4, dtype=np.float32)
-
-    @property
-    def debug_hook(self):
-        return None
-
-    @debug_hook.setter
-    def debug_hook(self, fn):
-        """The per-frame diagnostic hook (utils/debug_view) is not ported."""
-        raise NotImplementedError("vslam_torch: the tracker debug hook is not ported yet")
+        # optional per-frame diagnostic callback (frame_idx, pose, outputs,
+        # stats), called once a frame's stats are known; e.g.
+        # utils/debug_view.make_tracker_hook writes keypoint overlay PNGs.
+        # Whatever it reads from `outputs` it moves to the host itself.
+        self.debug_hook = None
 
     def set_gravity(self, gravity_w: np.ndarray):
         """Install the measured-gravity vector (the reference computes it from
@@ -809,6 +805,8 @@ class StereoTracker:
             "gate_floor": float(blob[32]),
             "lost": bool(blob[33] > 0.5),
         }
+        if self.debug_hook is not None:
+            self.debug_hook(frame_idx, pose, outputs, self.last_stats)
 
         # lost-tracking recovery (vslam_tpu/models/tracker.py:1230-1275;
         # the reference has none). After `reseed_after` consecutive refused

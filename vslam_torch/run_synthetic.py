@@ -11,8 +11,8 @@ fps + ATE against the scene's exact ground truth.
     python -m vslam_torch.run_synthetic --global-ba      # + one BA over the whole map
     python -m vslam_torch.run_synthetic --device cpu --frames 8
 
-Runs on the GPU unless ``--device cpu``. Not ported yet (NotImplementedError):
-``--viz`` (the map viewer, ROADMAP A8).
+Runs on the GPU unless ``--device cpu``. ``--viz map.html`` writes the
+map viewer (utils/viz.export_html) after the run.
 """
 
 from __future__ import annotations
@@ -57,8 +57,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--viz", default=None, help="HTML map viewer output path")
     ap.add_argument("--global-ba", action="store_true")
     args = ap.parse_args(argv)
-    if args.viz:
-        raise NotImplementedError("vslam_torch: --viz (the map viewer, ROADMAP A8) is not ported yet")
 
     from vslam_torch.models import system as system_mod
     from vslam_torch.utils import datasets, synthetic, trajectory
@@ -131,6 +129,11 @@ def main(argv=None) -> dict:
         f"{sys_.world.n_keyframes} keyframes, {sys_.world.n_landmarks} landmarks"
         + (f" | loop closures: {sys_.loop_closer.closures}" if loop else "")
     )
+    if args.viz:
+        from vslam_torch.utils import viz
+
+        viz.export_html(args.viz, sys_.world, poses, active_ids=sys_.tracker.active_ids)
+        print(f"[viz] -> {args.viz}")
     return result
 
 
