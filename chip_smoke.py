@@ -112,14 +112,15 @@ own line:
    relative, the same kill mask; the worst landmark's rows, block
    eigenvalues and move against its ray printed);
 16. loop: the bench's loop circuit (bench.py:244-309: make_loop_scene at
-   512x384, 360 frames, 1.2 laps, wall radius 10 m; 1024 features, active
+   512x384, wall radius 10 m, its first 330 frames: 1.1 laps at the
+   bench's 300 frames a lap; 1024 features, active
    set 1024, 32768 landmark and 256 keyframe slots, async BA at a fixed
    latency, loop closure on), frames staged on the card: fps, frame
    p50/p90, keyframes, landmarks, each applied closure (slots, frames,
    pose-graph path, merges, error, wall of its close), the detections'
    and the polishes' walls, closures (>= 1), ATE live (< 0.06 m) and after
    global_ba() (< max(1.1 x live, 0.05) m; tests/test_loop_closure.py:583,
-   587), extract_windows launches (360) and plain calls (0); the first
+   587), extract_windows launches (330) and plain calls (0); the first
    applied closure replayed twice from a copy of the map taken before it
    (the written maps bit-identical); the split-map closures of
    tests/test_loop_closure.py:374-456 (stereo, and mono through the
@@ -144,10 +145,34 @@ own line:
    device remap (ATE <= 0.08 m each, 30 launches). Where the machine has
    no g++ or no png.h, the native reader cannot build: the runs take
    --no-prefetch, the build error is printed and the native-only checks
-   are skipped.
+   are skipped;
+18. parallel (vslam_torch/parallel, vslam_torch/run_batch): the batched
+   frontend at the bench configuration (4 sequences, seeds 3, 6, 9, 12, 16
+   frames, a sync mapper per sequence) and at S=1: aggregate fps, batched
+   frame p50/p90, ATE per sequence (<= 0.05 m), one extract_windows launch
+   per batched frame (and one per sequence at frame 0), 0 plain calls; the
+   launches, syncs and device busy of one batched frame step at S=1 and
+   S=4 (torch.profiler; S=4 under 1.5x S=1's launches); run_batch's
+   configuration (320x240, 512 features, 4 levels, 20 frames) at S=1, 4
+   and 8, S=4 against each sequence alone (within 2e-3 m); mono-inertial
+   (2 x 14 frames) and stereo-inertial (2 x 8) batches against their solo
+   runs (2e-3 m; ATE <= 0.06 / 0.04 m); 2 sequences x 8 frames on the card
+   and on the CPU (the same keyframes, 1e-3 m / 1e-3 rad); the kernel
+   tables of a batched frame 0 (B=8 at the bench shape, B=16 at
+   run_batch's); the sharded BA over virtual shards on the card: phase
+   7's window on 2 and 4 shards against the unsharded solve (pose log
+   1e-3, conditioned points 1e-3, the same kills, error 1e-2 relative),
+   per-LM-iteration launches and device busy at 1, 2 and 4 shards,
+   run_global on phase 15's corridor over 2 shards (the composed 8-slab
+   path, phase 15's gates), and the facade with LocalMapper(mesh=2
+   shards) over phase 8's 12 frames against phase 8's card run (the same
+   keyframes and BA runs, 1e-3 m).
 
 Frames are rendered on the host by 8 processes forked at start-up,
-before CUDA is initialized, and stopped at the end.
+before CUDA is initialized, and stopped at the end. The CPU sides of the
+card-vs-CPU checks (phases 5, 8, 10, 11, 13 and 18) run in those
+processes too (2 torch threads each), while the card works: phases 8, 10
+and 11's during phases 7 and 15, the others beside untimed card work.
 
 The second-to-last line is the kernel report {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Nothing is caught: any failure raises.
@@ -170,11 +195,12 @@ import time
 import numpy as np
 import torch
 
-from vslam_torch import kernels, native, run_dataset, run_synthetic
+from vslam_torch import kernels, native, run_batch, run_dataset, run_synthetic
 from vslam_torch.geometry import se3, triangulate
 from vslam_torch.kernels import timing
 from vslam_torch.models import local_mapper, loop_closure, map_state, pose_graph, reloc, system, tracker
 from vslam_torch.ops import extract, imu, lm, patches, pyramid, schur
+from vslam_torch.parallel import mesh as par_mesh, multi_seq, sharded_ba
 from vslam_torch.utils import checkpoint as ckpt_io, datasets, synthetic, trajectory
 from vslam_torch.utils.config import ConfigFile
 
@@ -208,9 +234,14 @@ RECOVERY_GATE_M = 0.15
 # map-scale global BA (tests/test_ba.py:231-283)
 MAP_KF, MAP_LM, MAP_SLABS = 256, 50_000, 8
 # the bench's loop circuit (bench.py:244-309) and its gates
-# (tests/test_loop_closure.py:583, 587)
-LOOP_W, LOOP_H, LOOP_FRAMES = 512, 384, 360
-LOOP_SCENE = dict(n_frames=LOOP_FRAMES, width=LOOP_W, height=LOOP_H, loops=1.2, wall_radius=10.0)
+# (tests/test_loop_closure.py:583, 587), cut from 1.2 laps in 360 frames to
+# 1.1 in 330 (the same motion per frame, so the same first 330 frames; the
+# closures at frames 283 and 319 stay, the one at 348 goes): phases 1-16
+# took 779 s of the 1200 s limit before phases 17 and 18; one lap, with
+# the closure at 283 alone, ends with a live ATE over the gate (PERF.md
+# section 4)
+LOOP_W, LOOP_H, LOOP_FRAMES = 512, 384, 330
+LOOP_SCENE = dict(n_frames=LOOP_FRAMES, width=LOOP_W, height=LOOP_H, loops=1.1, wall_radius=10.0)
 LOOP_PARAMS = dict(n_features=1024, n_levels=8, active_size=1024)
 LOOP_CAPS = dict(lm_capacity=1 << 15, kf_capacity=256)
 LOOP_ATE_GATE_M, LOOP_GBA_FLOOR_M = 0.06, 0.05
@@ -258,13 +289,37 @@ def _render_frames(scene, frames, stereo: bool) -> list:
             for f in frames]
 
 
+def _render_async(scene, n: int, stereo: bool = True) -> list:
+    """Start rendering frames 0..n-1 of `scene` on the pool; the futures of
+    the chunks, in frame order (_collect waits for them)."""
+    chunks = [c for c in np.array_split(np.arange(n), 4 * RENDER_WORKERS) if len(c)]
+    return [_POOL.submit(_render_frames, scene, c, stereo) for c in chunks]
+
+
+CPU_THREADS = 2  # torch threads of a CPU-side run in a pool process
+
+
+def _in_pool(fn, args):
+    torch.set_num_threads(CPU_THREADS)
+    return fn(*args)
+
+
+def _cpu_side(fn, *args):
+    """Start fn(*args), the CPU side of a card-vs-CPU check, in a pool
+    process (forked before CUDA was initialized), so that it runs while
+    the card works; the future of its (picklable) result."""
+    return _POOL.submit(_in_pool, fn, args)
+
+
+def _collect(futures: list) -> list:
+    return [v for fut in futures for v in fut.result()]
+
+
 def _render(scene, n: int, stereo: bool = True) -> list:
     """Frames 0..n-1 of `scene` ((2, H, W) L+R pairs, or (H, W) views),
     rendered by the pool (the renderer is a Python loop over patches, one
     core per view)."""
-    chunks = [c for c in np.array_split(np.arange(n), 4 * RENDER_WORKERS) if len(c)]
-    parts = _POOL.map(_render_frames, [scene] * len(chunks), chunks, [stereo] * len(chunks))
-    return [v for part in parts for v in part]
+    return _collect(_render_async(scene, n, stereo))
 
 
 def phase_device() -> str:
@@ -286,15 +341,18 @@ def phase_build():
 
 
 def _level_inputs(scene, dev, height=HEIGHT, width=WIDTH, n_features=PARAMS["n_features"],
-                  seed=SEED, mono=False):
+                  seed=SEED, mono=False, n_levels=PARAMS["n_levels"]):
     """The main path's inputs to extract_windows for frame 0: every level's
-    blurred L+R image (the left one alone with `mono`), the level quota of
+    blurred L+R image (the left one alone with `mono`; a list of scenes
+    gives a batched frame's views, L0 R0 L1 R1 ...), the level quota of
     keys, corners from a seeded generator including the extreme corners."""
-    views = [scene.render(0)] if mono else [scene.render(0), scene.render(0, right=True)]
+    views = []
+    for sc in scene if isinstance(scene, list) else [scene]:
+        views += [sc.render(0)] if mono else [sc.render(0), sc.render(0, right=True)]
     imgs = torch.from_numpy(np.stack(views)).to(dev)
     B = imgs.shape[0]
-    shapes = pyramid.level_shapes(height, width, PARAMS["n_levels"], 1.2)
-    quotas = extract.level_quotas(n_features, PARAMS["n_levels"], 1.2)
+    shapes = pyramid.level_shapes(height, width, n_levels, 1.2)
+    quotas = extract.level_quotas(n_features, n_levels, 1.2)
     rng = np.random.default_rng(seed)
     cur, cases = imgs, []
     for lvl, ((h, w), q) in enumerate(zip(shapes, quotas)):
@@ -499,14 +557,21 @@ def _pose_diff(a: np.ndarray, b: np.ndarray):
     return dt, ang
 
 
+def _cpu_tracker(scene, pairs) -> tuple:
+    """The tracker alone on the CPU: keyframe slots, their frames, poses."""
+    trk, poses = _run_tracker(scene, [torch.from_numpy(p) for p in pairs], "cpu")
+    return trk.new_kf_slots, trk.world.kf_frame_idx[: trk.world.n_keyframes].copy(), poses
+
+
 def phase_card_vs_cpu(scene, pairs):
     sub = pairs[:CPU_FRAMES]
+    cpu = _cpu_side(_cpu_tracker, scene, sub)
     t_gpu, p_gpu = _run_tracker(scene, [torch.from_numpy(p).cuda() for p in sub], "cuda")
-    t_cpu, p_cpu = _run_tracker(scene, [torch.from_numpy(p) for p in sub], "cpu")
-    if t_gpu.new_kf_slots != t_cpu.new_kf_slots:
-        raise AssertionError(f"keyframes differ: card {t_gpu.new_kf_slots} cpu {t_cpu.new_kf_slots}")
+    kf_cpu, kf_frames_cpu, p_cpu = cpu.result()
+    if t_gpu.new_kf_slots != kf_cpu:
+        raise AssertionError(f"keyframes differ: card {t_gpu.new_kf_slots} cpu {kf_cpu}")
     n = t_gpu.world.n_keyframes
-    if not np.array_equal(t_gpu.world.kf_frame_idx[:n], t_cpu.world.kf_frame_idx[:n]):
+    if not np.array_equal(t_gpu.world.kf_frame_idx[:n], kf_frames_cpu):
         raise AssertionError("keyframes fired at different frames on card and CPU")
     dt, ang = _pose_diff(p_gpu, p_cpu)
     say("card_vs_cpu", frames=CPU_FRAMES, keyframes=t_gpu.new_kf_slots,
@@ -673,6 +738,16 @@ def _profile_counts(fn, top: int = 0) -> dict:
 LM_COND_MAX = 1e6
 
 
+def _conditioned(q: schur.BAProblem, p: schur.BAProblem):
+    """The valid landmarks of a solved window `q` whose undamped 3x3 block
+    has a condition number under LM_COND_MAX (an unconditioned one moves
+    along its ray under any change of the step); with each landmark's row
+    count and its block's eigenvalues."""
+    n_rows = torch.bincount(q.obs_lm[q.obs_valid], minlength=p.pts.shape[0])
+    ev = torch.linalg.eigvalsh(schur._assemble(q)[1].double())
+    return p.pt_valid & (n_rows > 0) & (ev[:, 0] * LM_COND_MAX > ev[:, 2]), n_rows, ev
+
+
 def _slab_agreement(a, sl, p: schur.BAProblem) -> dict:
     """Two solves of one window, unslabbed (a) and slabbed (sl): the
     largest pose difference, the errors and kills, and the largest point
@@ -685,10 +760,8 @@ def _slab_agreement(a, sl, p: schur.BAProblem) -> dict:
     its ray."""
     q = a[0]
     L = p.pts.shape[0]
-    n_rows = torch.bincount(q.obs_lm[q.obs_valid], minlength=L)
     n_stereo = torch.bincount(q.obs_lm[q.obs_valid & q.obs_stereo], minlength=L)
-    ev = torch.linalg.eigvalsh(schur._assemble(q)[1].double())
-    placed = p.pt_valid & (n_rows > 0) & (ev[:, 0] * LM_COND_MAX > ev[:, 2])
+    placed, n_rows, ev = _conditioned(q, p)
     loose = p.pt_valid & ~placed
     d = sl[0].pts - q.pts
     dl = torch.where(p.pt_valid, d.abs().amax(dim=1), 0.0)
@@ -789,25 +862,38 @@ def phase_ba(p: schur.BAProblem, sys_: system.VSlamSystem):
     return prof
 
 
-def phase_system_card_vs_cpu(scene, pairs, phase="system_card_vs_cpu", n=SYS_CPU_FRAMES,
+def _cpu_system(scene, pairs, imu_bins, kw: dict) -> tuple:
+    """The facade (`kw` as for _system) on the CPU: keyframe slots, BA
+    runs, poses."""
+    c = _system(scene, "cpu", **kw)
+    pc = _run_system(c, [torch.from_numpy(p) for p in pairs], imu_bins)
+    return c.tracker.new_kf_slots, c.mapper.ba_count, pc
+
+
+def cpu_system(scene, pairs, n=SYS_CPU_FRAMES, imu_bins=None, **kw):
+    """Start the CPU side of phase_system_card_vs_cpu on the pool."""
+    return _cpu_side(_cpu_system, scene, pairs[:n], imu_bins, kw)
+
+
+def phase_system_card_vs_cpu(scene, pairs, cpu, phase="system_card_vs_cpu", n=SYS_CPU_FRAMES,
                              imu_bins=None, **kw):
     """The facade (`kw` as for _system) over the first `n` frames on the
-    card and on the CPU: the same keyframes and BA runs, poses within
-    POSE_TOL."""
+    card against `cpu`, the future of the same run on the CPU (cpu_system):
+    the same keyframes and BA runs, poses within POSE_TOL."""
     sub = pairs[:n]
     g = _system(scene, "cuda", **kw)
     pg = _run_system(g, [torch.from_numpy(p).cuda() for p in sub], imu_bins)
-    c = _system(scene, "cpu", **kw)
-    pc = _run_system(c, [torch.from_numpy(p) for p in sub], imu_bins)
-    if g.tracker.new_kf_slots != c.tracker.new_kf_slots or g.mapper.ba_count != c.mapper.ba_count:
+    kf_c, ba_c, pc = cpu.result()
+    if g.tracker.new_kf_slots != kf_c or g.mapper.ba_count != ba_c:
         raise AssertionError(
             f"{phase}: keyframes/BA differ: card {g.tracker.new_kf_slots} {g.mapper.ba_count}, "
-            f"cpu {c.tracker.new_kf_slots} {c.mapper.ba_count}")
+            f"cpu {kf_c} {ba_c}")
     dt, ang = _pose_diff(pg, pc)
     say(phase, frames=n, keyframes=g.tracker.new_kf_slots, ba_runs=g.mapper.ba_count,
         max_dt_m=float(dt.max()), max_drot_rad=float(ang.max()))
     if dt.max() > POSE_TOL_M or ang.max() > POSE_TOL_RAD:
         raise AssertionError(f"{phase}: card and CPU poses differ: {dt.max()} m, {ang.max()} rad")
+    return g.tracker.new_kf_slots, g.mapper.ba_count, pg
 
 
 def _stage(pairs):
@@ -868,9 +954,10 @@ def phase_async(scene, pairs, sync_fps) -> int:
     return launches
 
 
-def phase_imu(scene, pairs, bins) -> int:
-    """STEREO_IMU with the sync mapper over the 40 frames, then the 15-dof
-    solve and the preintegration alone (the last of each the run made)."""
+def phase_imu(scene, pairs, bins, cpu) -> int:
+    """STEREO_IMU with the sync mapper over the system frames, then the 15-dof
+    solve and the preintegration alone (the last of each the run made);
+    `cpu`: the CPU side of its card-vs-CPU check (cpu_system)."""
     frames = _stage(pairs)
     sys_ = _system(scene, "cuda", imu=True)
     last, n_calls = {}, {"motion_only_ba_imu": 0, "preintegrate": 0}
@@ -918,10 +1005,11 @@ def phase_imu(scene, pairs, bins) -> int:
         imu_solve=prof["motion_only_ba_imu"],
         imu_solve_launches_per_frame=per_frame * prof["motion_only_ba_imu"]["kernel_launches"],
         imu_solve_syncs_per_frame=per_frame * prof["motion_only_ba_imu"]["stream_syncs"],
-        preintegrate=prof["preintegrate"], preintegrate_rows=len(last["preintegrate"][1][0]))
+        preintegrate=prof["preintegrate"],
+        preintegrate_rows=len(imu.active_rows(last["preintegrate"][1][0][0])))
     if not ate <= IMU_ATE_GATE_M:
         raise AssertionError(f"STEREO_IMU ATE {ate} m > {IMU_ATE_GATE_M} m")
-    phase_system_card_vs_cpu(scene, pairs, "stereo_imu_card_vs_cpu", IMU_CPU_FRAMES, bins, imu=True)
+    phase_system_card_vs_cpu(scene, pairs, cpu, "stereo_imu_card_vs_cpu", IMU_CPU_FRAMES, bins, imu=True)
     return launches
 
 
@@ -942,7 +1030,7 @@ def _driver(argv) -> tuple[dict, int]:
 
 def phase_driver() -> tuple[int, int]:
     """The driver's KITTI scene with a global BA after it, then its mono
-    scene for 24 frames."""
+    scene."""
     r, launches = _driver(["--scene", "kitti", "--global-ba", "--frames", str(KITTI_FRAMES)])
     if r["frames"] != KITTI_FRAMES or launches != KITTI_FRAMES:
         raise AssertionError(f"driver: {r['frames']} frames, {launches} launches")
@@ -989,6 +1077,14 @@ def _run_mono(sys_, frames, bins):
     return sys_.trajectory(), counts
 
 
+def _cpu_mono(scene, imgs, bins) -> tuple:
+    """The mono facade on the CPU: bootstrap and keyframe slots, landmark
+    count, poses."""
+    c = _mono_system(scene, "cpu")
+    pc, _ = _run_mono(c, [torch.from_numpy(i) for i in imgs], bins)
+    return c.tracker.bootstrap_slots, c.tracker.new_kf_slots, c.world.n_landmarks, pc
+
+
 def phase_mono() -> int:
     scene = synthetic.make_scene(**MONO_SCENE)
     t0 = time.perf_counter()
@@ -1013,6 +1109,8 @@ def phase_mono() -> int:
     tracked = MONO_FRAMES - 1 - init_frame
     want = len(trk.bootstrap_slots) + tracked
     ate = trajectory.ate_rmse(poses, scene.poses_c2w[:MONO_FRAMES], align=False)
+    n = MONO_CPU_FRAMES
+    cpu = _cpu_side(_cpu_mono, scene, imgs[:n], bins)  # while the untimed repeat runs
     repeat, _ = _run_mono(_mono_system(scene, "cuda"), frames, bins)
     init = [c for c, is_init in tri if is_init]
     st = trk.metrics.summary()
@@ -1035,16 +1133,14 @@ def phase_mono() -> int:
     if not np.array_equal(poses, repeat):
         raise AssertionError("a second mono run on the card gave another trajectory")
 
-    n = MONO_CPU_FRAMES
-    g, c = _mono_system(scene, "cuda"), _mono_system(scene, "cpu")
+    g = _mono_system(scene, "cuda")
     pg, _ = _run_mono(g, frames[:n], bins)
-    pc, _ = _run_mono(c, [torch.from_numpy(i) for i in imgs[:n]], bins)
-    same = (g.tracker.bootstrap_slots == c.tracker.bootstrap_slots
-            and g.tracker.new_kf_slots == c.tracker.new_kf_slots)
+    boot_c, kf_c, n_lm_c, pc = cpu.result()
+    same = g.tracker.bootstrap_slots == boot_c and g.tracker.new_kf_slots == kf_c
     dt, ang = _pose_diff(pg, pc)
     say("mono_card_vs_cpu", frames=n, keyframes=g.tracker.new_kf_slots,
         bootstrap_slots=g.tracker.bootstrap_slots, same_slots=same,
-        landmarks_card=g.world.n_landmarks, landmarks_cpu=c.world.n_landmarks,
+        landmarks_card=g.world.n_landmarks, landmarks_cpu=n_lm_c,
         max_dt_m=float(dt.max()), max_drot_rad=float(ang.max()))
     if not same or dt.max() > POSE_TOL_M or ang.max() > POSE_TOL_RAD:
         raise AssertionError(f"mono card vs CPU: slots {same}, {dt.max()} m, {ang.max()} rad")
@@ -1134,6 +1230,34 @@ def phase_recovery() -> int:
     return launches
 
 
+def _corridor_map(mesh=None):
+    """Phase 15's map: tests/test_ba.py:231-283's corridor with drifted
+    poses on the card, and a mapper on it (3 + 5 LM iterations; `mesh`:
+    sharded). Returns (world, the corridor's truth, the drifted poses,
+    mapper)."""
+    world, c = synthetic.corridor_world(MAP_KF, MAP_LM, PARAMS["n_features"], device="cuda")
+    rng = np.random.default_rng(1)
+    drift = np.cumsum(rng.normal(0, 0.004, (MAP_KF, 3)), axis=0).astype(np.float32)
+    drift[0] = 0.0
+    pert = c["poses"].copy()
+    pert[:, :3, 3] += drift
+    world.arrays.kf_pose.copy_(torch.from_numpy(pert))
+    world.kf_poses_host[:] = pert
+    mapper = local_mapper.LocalMapper(
+        world, c["K"], c["baseline"], local_mapper.LocalMapperConfig(iters_round1=3, iters_round2=5),
+        mesh=mesh,
+    )
+    return world, c, pert, mapper
+
+
+def _corridor_rel_err(ps, c) -> float:
+    """Mean relative translation error over 5-keyframe steps against the
+    corridor's truth (tests/test_ba.py:276-283)."""
+    d = np.linalg.inv(ps[:-5]) @ ps[5:]
+    dg = np.linalg.inv(c["poses"][:-5]) @ c["poses"][5:]
+    return float(np.mean(np.linalg.norm(d[:, :3, 3] - dg[:, :3, 3], axis=1)))
+
+
 def phase_global_ba(sys_, scene):
     """VSlamSystem.global_ba after phase 6's run, then the map-scale
     corridor map."""
@@ -1153,17 +1277,7 @@ def phase_global_ba(sys_, scene):
     if not (np.isfinite(r["error"]) and ate1 <= ATE_GATE_M):
         raise AssertionError(f"global BA: error {r['error']}, ATE {ate0} -> {ate1} m")
 
-    world, c = synthetic.corridor_world(MAP_KF, MAP_LM, PARAMS["n_features"], device="cuda")
-    rng = np.random.default_rng(1)
-    drift = np.cumsum(rng.normal(0, 0.004, (MAP_KF, 3)), axis=0).astype(np.float32)
-    drift[0] = 0.0
-    pert = c["poses"].copy()
-    pert[:, :3, 3] += drift
-    world.arrays.kf_pose.copy_(torch.from_numpy(pert))
-    world.kf_poses_host[:] = pert
-    mapper = local_mapper.LocalMapper(
-        world, c["K"], c["baseline"], local_mapper.LocalMapperConfig(iters_round1=3, iters_round2=5)
-    )
+    world, c, pert, mapper = _corridor_map()
     solve = local_mapper.schur.local_ba_two_rounds
     problems = []
 
@@ -1184,12 +1298,7 @@ def phase_global_ba(sys_, scene):
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     n_obs = int((c["obs_lm"] >= 0).sum())
     new = world.kf_poses_host[:MAP_KF]
-
-    def rel_err(ps):
-        d = np.linalg.inv(ps[:-5]) @ ps[5:]
-        dg = np.linalg.inv(c["poses"][:-5]) @ c["poses"][5:]
-        return float(np.mean(np.linalg.norm(d[:, :3, 3] - dg[:, :3, 3], axis=1)))
-
+    rel_err = lambda ps: _corridor_rel_err(ps, c)
     p, n_slabs = problems[-1]
     it = _profile_counts(lambda: (schur.local_ba(p, iters=1, n_slabs=n_slabs), torch.cuda.synchronize()),
                          top=8)
@@ -1248,12 +1357,16 @@ def _spy(obj, name, calls):
     return lambda: setattr(obj, name, fn)
 
 
-def phase_loop(scene) -> int:
+def phase_loop(scene, while_running=None) -> int:
     """Phase 16: the bench's loop circuit through the facade on the card,
     then the first applied closure replayed twice from a copy of the map
-    taken just before it."""
+    taken just before it. `while_running` is called once the circuit's
+    frames are rendered: it may start the renders of a later phase on the
+    pool, which is idle while this phase runs on the card."""
     t0 = time.perf_counter()
     frames = _stage(_render(scene, LOOP_FRAMES))
+    if while_running is not None:
+        while_running()
     render_s = time.perf_counter() - t0
     sys_ = _loop_system("cuda")
     closer = sys_.loop_closer
@@ -1594,7 +1707,7 @@ def _phase_dataset_kitti(tmp, io) -> int:
     if overlays != [f"frame_{f:06d}.png" for f in range(10, n, 10)] or a["checkpoints"] < want_ckpts or unequal:
         raise AssertionError(f"dataset run (a) outputs: {overlays}, {a['checkpoints']} checkpoints, {unequal}")
 
-    # run (b): stop at frame 20 with a checkpoint, resume to the end
+    # run (b): stop at DS_RESUME_AT with a checkpoint, resume to the end
     b, launches_b = _dataset_run([cfg, *io, "--out", p("b.txt"), "--limit", str(DS_RESUME_AT),
                                   "--checkpoint", p("b.npz")])
     r, launches_r = _dataset_run([cfg, *io, "--out", p("r.txt"), "--resume", p("b.npz")])
@@ -1648,6 +1761,419 @@ def _phase_dataset_euroc(tmp, io) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the parallel layer (vslam_torch/parallel, vslam_torch/run_batch)
+# ---------------------------------------------------------------------------
+PAR_BENCH_SEQS, PAR_BENCH_FRAMES = 4, 16
+PAR_SMALL_SEQS, PAR_SMALL_FRAMES = (1, 4, 8), 20
+PAR_SOLO_TOL_M = 2e-3  # batched against solo, tests/test_parallel.py:292
+PAR_INERTIAL = {  # mode: (sequences, frames, ATE gate), tests/test_parallel.py:299-470
+    "mono": (2, 14, 0.06), "stereo_imu": (2, 8, 0.04)}
+PAR_CPU_SEQS, PAR_CPU_FRAMES = 2, 8
+PAR_SHARDS = (2, 4)
+PAR_MAPPER_FRAMES = SYS_CPU_FRAMES  # phase 8's card run is the unsharded reference
+PAR_LAUNCH_RATIO = 1.5  # launches of a batched frame at S=4 against S=1
+
+
+def _inertial_scenes(mode: str) -> list:
+    """tests/test_parallel.py:299-470's scenes (320x240): mono lateral with
+    distinct texture, seeds 11 + 5s; stereo-IMU seeds 7 + 5s."""
+    S, n, _ = PAR_INERTIAL[mode]
+    kw = (dict(n_points=500, texture="distinct", motion="lateral") if mode == "mono"
+          else dict(n_points=400))
+    seed0 = 11 if mode == "mono" else 7
+    return [synthetic.make_scene(n_frames=n, width=320, height=240, fps=10.0, seed=seed0 + 5 * s, **kw)
+            for s in range(S)]
+
+
+# phase 18's scenes: name -> (scenes, frames, stereo)
+_PAR_SCENES = {
+    "bench": lambda: (run_batch.scenes(PAR_BENCH_SEQS, PAR_BENCH_FRAMES, "bench"), PAR_BENCH_FRAMES, True),
+    "small": lambda: (run_batch.scenes(max(PAR_SMALL_SEQS), PAR_SMALL_FRAMES, "small"),
+                      PAR_SMALL_FRAMES, True),
+    **{mode: (lambda mode=mode: (_inertial_scenes(mode), PAR_INERTIAL[mode][1], mode != "mono"))
+       for mode in PAR_INERTIAL},
+}
+def start_parallel_renders(renders: dict):
+    """Start rendering every frame phase 18 needs on the pool, into
+    `renders` (name -> (scenes, per-scene render futures)); called while
+    phase 16 runs on the card."""
+    for name, make in _PAR_SCENES.items():
+        scenes, n, stereo = make()
+        renders[name] = (scenes, [_render_async(sc, n, stereo) for sc in scenes])
+
+
+def _par_views(renders: dict, name: str):
+    """(scenes, per-scene views) of one of phase 18's scene sets: the early
+    renders when they were started, else rendered now."""
+    if name not in renders:
+        scenes, n, stereo = _PAR_SCENES[name]()
+        renders[name] = (scenes, [_render_async(sc, n, stereo) for sc in scenes])
+    scenes, futures = renders.pop(name)
+    return scenes, [_collect(f) for f in futures]
+
+
+def _staged_batch(views: list) -> list:
+    """Per-scene (2, H, W) views as one (S, 2, H, W) tensor per frame on the
+    card."""
+    frames = [torch.from_numpy(np.stack([v[f] for v in views])).to("cuda") for f in range(len(views[0]))]
+    torch.cuda.synchronize()
+    return frames
+
+
+def _batch_run(config: str, S: int, n: int, frames: list, device="cuda") -> dict:
+    """run_batch's frontend and per-sequence sync mappers over n staged
+    frames of the first S sequences: wall, aggregate fps, batched-frame
+    p50/p90, ATE per sequence, keyframes, BA runs, extract_windows launches
+    and plain calls."""
+    scenes, pairs, front = run_batch.build(S, n, config, device)
+    frames = [f[:S].to(device) for f in frames]
+    with _plain_calls() as plain:
+        patches.LAUNCHES = 0
+        t0 = time.perf_counter()
+        run_batch.run_frames(front, pairs, frames)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = patches.LAUNCHES
+    poses = [p[0].trajectory() for p in pairs]
+    step = front.metrics.summary()["track"]
+    return {
+        "scenes": scenes, "pairs": pairs, "front": front, "frames": frames, "poses": poses,
+        "wall_s": wall, "aggregate_fps": S * n / wall, "frame_p50_ms": step["p50_ms"],
+        "frame_p90_ms": step["p90_ms"], "launches": launches, "plain_calls": len(plain),
+        "ate_m": [float(trajectory.ate_rmse(pz, sc.poses_c2w[:n], align=False))
+                  for pz, sc in zip(poses, scenes)],
+        "keyframes": [len(p[0].new_kf_slots) for p in pairs], "ba_runs": [p[1].ba_count for p in pairs],
+    }
+
+
+def _check_batch(tag: str, r: dict, S: int, n: int, gate: float):
+    """One launch per batched frame and one per sequence's frame 0, no plain
+    call on the card, every ATE under the gate."""
+    if r["launches"] != (n - 1) + S or r["plain_calls"]:
+        raise AssertionError(f"{tag}: {r['launches']} extract_windows launches (want {n - 1 + S}), "
+                             f"{r['plain_calls']} plain calls")
+    if not all(np.isfinite(p).all() and p.shape == (n, 4, 4) for p in r["poses"]):
+        raise AssertionError(f"{tag}: bad trajectories")
+    if max(r["ate_m"]) > gate:
+        raise AssertionError(f"{tag}: ATE {r['ate_m']} > {gate} m")
+
+
+def _step_profile(r: dict) -> dict:
+    """Launches, syncs and device busy of one batched frame step (the
+    frontend's last frame again, from the trackers' current states)."""
+    front = r["front"]
+    ts = front.trackers
+    t0 = ts[0]
+    state = tracker.stack_trees([t._state for t in ts])
+
+    def step():
+        tracker.track_step_batch(
+            r["frames"][-1], state, t0._radii, t0.params.refine_radius, t0._desc_thr, t0._ratio,
+            front._K_b, front._bl_b, t0.scale_factors, t0.params, t0.width, t0.height)
+        torch.cuda.synchronize()
+
+    step()
+    return _profile_counts(step)
+
+
+def _summary(r: dict) -> dict:
+    return {k: r[k] for k in ("wall_s", "aggregate_fps", "frame_p50_ms", "frame_p90_ms", "launches",
+                              "plain_calls", "ate_m", "keyframes", "ba_runs")}
+
+
+def _solo_gap(r: dict, solo: list) -> float:
+    """Largest translation gap between each batched sequence and its solo run."""
+    return max(float(_pose_diff(b, s)[0].max()) for b, s in zip(r["poses"], solo))
+
+
+def _solo_stereo(frames, config: str, seq: int, device="cuda"):
+    """Sequence `seq` of a configuration alone through StereoTracker.track
+    and its sync mapper."""
+    _, pairs, _ = run_batch.build(seq + 1, len(frames), config, device)
+    trk, mapper = pairs[seq]
+    for fr in frames:
+        nk = len(trk.new_kf_slots)
+        trk.track(fr)
+        if len(trk.new_kf_slots) > nk and trk.new_kf_slots[-1] > 0:
+            out = mapper.run(trk.new_kf_slots[-1])
+            trk.reanchor(out["kf_slot"], out["old_pose"], out["new_pose"])
+            trk.add_active(out["new_lm_ids"])
+    return trk.trajectory()
+
+
+def _inertial_pair(mode: str, scene, device):
+    """tests/test_parallel.py:299-470's tracker and mapper (320x240, 512
+    features, 4 levels, the IMU block of its ImuConfig)."""
+    p = tracker.TrackerParams(n_features=512, n_levels=4, active_size=1024, spawn_per_kf=256,
+                              **({} if mode == "mono" else {"kf_min_stereo": 60}))
+    K = scene.K.astype(np.float32)
+    world = map_state.WorldMap(lm_capacity=8192, kf_capacity=64, keys_per_kf=512, device=device)
+    cfg = tracker.ImuConfig(gyro_noise=1.7e-4, accel_noise=2e-3, gyro_walk=1.9e-5, accel_walk=3e-3,
+                            hz=200.0, T_bc=np.eye(4, dtype=np.float32),
+                            gravity_w=synthetic.GRAVITY_W.astype(np.float32))
+    if mode == "mono":
+        trk = tracker.MonoTracker(K, scene.width, scene.height, world, p, imu_cfg=cfg, device=device)
+    else:
+        trk = tracker.StereoTracker(K, scene.baseline, scene.width, scene.height, world, p,
+                                    imu_cfg=cfg, device=device)
+    trk.velocity = scene.velocities[0].astype(np.float32)
+    mapper = local_mapper.LocalMapper(world, K, 0.0 if mode == "mono" else scene.baseline,
+                                      local_mapper.LocalMapperConfig(n_levels=4, scale=1.2))
+    return trk, mapper
+
+
+def _inertial_service(mode, trk, mapper, nk):
+    if mode == "mono":
+        if trk.needs_init_triangulation:
+            ids = mapper.find_new_points(trk.new_kf_slots[-1], mono=True)
+            trk.add_active(ids)
+            trk.needs_init_triangulation = False
+            trk.last_kf_tracked = max(len(ids), 1)
+        elif len(trk.new_kf_slots) > nk and trk.new_kf_slots[-1] > 0:
+            trk.add_active(mapper.find_new_points(trk.new_kf_slots[-1], mono=True))
+    elif len(trk.new_kf_slots) > nk and trk.new_kf_slots[-1] > 0:
+        out = mapper.run(trk.new_kf_slots[-1])
+        trk.reanchor(out["kf_slot"], out["old_pose"], out["new_pose"])
+        trk.add_active(out["new_lm_ids"])
+
+
+def _dt_rows(bins, f):
+    """A frame's [dt, gyro, accel] rows (tests/test_parallel.py:313-321)."""
+    rows = bins[f]
+    if rows is None or len(rows) == 0:
+        return None
+    t = rows[:, 0]
+    dts = np.diff(np.concatenate([[t[0] - 1.0 / 200.0], t]))
+    return np.concatenate([np.maximum(dts, 0)[:, None], rows[:, 1:7]], axis=1).astype(np.float32)
+
+
+def _inertial_batch(mode: str, renders: dict) -> dict:
+    """Mono-inertial or stereo-inertial sequences batched on the card,
+    against each sequence alone on the card."""
+    S, n, gate = PAR_INERTIAL[mode]
+    scenes, views = _par_views(renders, mode)
+    frames = [[torch.from_numpy(v[f]).to("cuda") for v in views] for f in range(n)]
+    rows = [[_dt_rows(datasets.bin_imu_per_frame(sc.imu, sc.times), f) for sc in scenes] for f in range(n)]
+    solo = []
+    for s, sc in enumerate(scenes):
+        trk, mapper = _inertial_pair(mode, sc, "cuda")
+        for f in range(n):
+            nk = len(trk.new_kf_slots)
+            trk.track(frames[f][s], imu=rows[f][s])
+            _inertial_service(mode, trk, mapper, nk)
+        solo.append(trk.trajectory())
+    pairs = [_inertial_pair(mode, sc, "cuda") for sc in scenes]
+    front = multi_seq.BatchedStereoFrontend([p[0] for p in pairs])
+    with _plain_calls() as plain:
+        patches.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for f in range(n):
+            nks = [len(p[0].new_kf_slots) for p in pairs]
+            front.track(frames[f], imu=rows[f])
+            for (trk, mapper), nk in zip(pairs, nks):
+                _inertial_service(mode, trk, mapper, nk)
+        front.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = patches.LAUNCHES
+    poses = [p[0].trajectory() for p in pairs]
+    ate = [float(trajectory.ate_rmse(pz, sc.poses_c2w[:n], align=False)) for pz, sc in zip(poses, scenes)]
+    gap = max(float(_pose_diff(b, s_)[0].max()) for b, s_ in zip(poses, solo))
+    batched = front.metrics.summary().get("track", {}).get("count", 0)
+    # one launch per batched frame, and per sequence one per frame it
+    # tracked alone (stereo: frame 0; mono: every bootstrap view and every
+    # frame after its init until the last sequence initialized)
+    alone = 0
+    for trk, _ in pairs:
+        if trk._mono:
+            init = int(trk.world.kf_frame_idx[trk.bootstrap_slots[-1]]) + 1
+            alone += len(trk.bootstrap_slots) + (n - batched - init)
+        else:
+            alone += n - batched
+    out = {"sequences": S, "frames": n, "wall_s": wall, "aggregate_fps": S * n / wall,
+           "batched_frames": batched, "launches": launches, "launches_alone": alone,
+           "plain_calls": len(plain), "ate_m": ate, "max_gap_to_solo_m": gap,
+           "keyframes": [len(p[0].new_kf_slots) for p in pairs]}
+    say(f"parallel_{mode}", **out)
+    if len(plain) or batched < 1 or launches != batched + alone:
+        raise AssertionError(f"parallel_{mode}: {launches} launches for {batched} batched frames "
+                             f"and {alone} alone, {len(plain)} plain calls")
+    if gap > PAR_SOLO_TOL_M or max(ate) > gate:
+        raise AssertionError(f"parallel_{mode}: gap to solo {gap} m, ATE {ate} (gate {gate} m)")
+    return out
+
+
+def _batch_tables(dev, smi) -> dict:
+    """extract_windows_levels on the tables of a batched frame 0: 4
+    sequences at the bench shape (B=8) and 8 at run_batch's (B=16)."""
+    out = {}
+    for name, config, S, (H, W, n_feat, n_lv) in (
+        ("batch_bench", "bench", PAR_BENCH_SEQS, (HEIGHT, WIDTH, PARAMS["n_features"], PARAMS["n_levels"])),
+        ("batch_small", "small", max(PAR_SMALL_SEQS), (240, 320, 512, 4)),
+    ):
+        cases = _level_inputs(run_batch.scenes(S, 1, config), dev, H, W, n_feat, seed=SEED,
+                              n_levels=n_lv)
+        agree, errs = _agreement()
+        t = _table(cases, agree, smi, f"{config} {W}x{H}, {n_feat} keys, frame 0, {n_lv} levels, "
+                                      f"{S} sequences L+R (B={2 * S}), one launch")
+        out[name] = {"max_abs_err": max(errs), **t}
+    return out
+
+
+def _cpu_batch(frames: list) -> tuple:
+    """run_batch's configuration batched on the CPU over `frames` ((S, 2,
+    H, W) arrays): keyframe slots and poses per sequence."""
+    r = _batch_run("small", PAR_CPU_SEQS, PAR_CPU_FRAMES, [torch.from_numpy(f) for f in frames],
+                   device="cpu")
+    return [p[0].new_kf_slots for p in r["pairs"]], r["poses"]
+
+
+def phase_parallel(window: schur.BAProblem, sys_scene, sys_pairs, unsharded, renders: dict) -> dict:
+    """Phase 18: the batched frontend (bench and run_batch configurations,
+    mono- and stereo-inertial), card against CPU, and the sharded BA over
+    virtual shards on the card. `renders`: the frames started by
+    start_parallel_renders (what is missing is rendered here)."""
+    launches = {}
+    # 1. the bench configuration, S=4 and S=1 through the same frontend
+    t0 = time.perf_counter()
+    staged = _staged_batch(_par_views(renders, "bench")[1])
+    say("parallel_frames", name="bench", wait_s=time.perf_counter() - t0)
+    prof = {}
+    for S in (PAR_BENCH_SEQS, 1):
+        r = _batch_run("bench", S, PAR_BENCH_FRAMES, staged)
+        _check_batch(f"parallel_bench_s{S}", r, S, PAR_BENCH_FRAMES, ATE_GATE_M)
+        t0 = time.perf_counter()
+        prof[S] = _step_profile(r)
+        launches[f"batch_bench_s{S}"] = r["launches"]
+        say("parallel_bench", sequences=S, frames=PAR_BENCH_FRAMES, **_summary(r), step=prof[S],
+            profile_s=time.perf_counter() - t0)
+    ratio = prof[PAR_BENCH_SEQS]["kernel_launches"] / prof[1]["kernel_launches"]
+    say("parallel_bench_step", launch_ratio_s4_s1=ratio,
+        device_busy_ms={S: p["device_busy_ms"] for S, p in prof.items()})
+    if not ratio < PAR_LAUNCH_RATIO:
+        raise AssertionError(f"a batched frame at S=4 makes {ratio}x the launches of S=1")
+
+    # 2. run_batch's configuration at S = 1, 4, 8; S=4 against each sequence alone
+    t0 = time.perf_counter()
+    staged = _staged_batch(_par_views(renders, "small")[1])
+    say("parallel_frames", name="small", wait_s=time.perf_counter() - t0)
+    for S in PAR_SMALL_SEQS:
+        r = _batch_run("small", S, PAR_SMALL_FRAMES, staged)
+        _check_batch(f"parallel_small_s{S}", r, S, PAR_SMALL_FRAMES, ATE_GATE_M)
+        launches[f"batch_small_s{S}"] = r["launches"]
+        extra = {}
+        if S == 4:
+            solo = [_solo_stereo([f[s] for f in staged], "small", s) for s in range(S)]
+            extra["max_gap_to_solo_m"] = gap = _solo_gap(r, solo)
+            if gap > PAR_SOLO_TOL_M:
+                raise AssertionError(f"run_batch S=4: a sequence is {gap} m from its solo run")
+        say("parallel_small", sequences=S, frames=PAR_SMALL_FRAMES, **_summary(r), **extra)
+
+    # 3. mono- and stereo-inertial batches
+    for mode in PAR_INERTIAL:
+        launches[f"batch_{mode}"] = _inertial_batch(mode, renders)["launches"]
+
+    # 4. card against CPU
+    cpu = _cpu_side(_cpu_batch, [f[:PAR_CPU_SEQS].cpu().numpy() for f in staged[:PAR_CPU_FRAMES]])
+    rg = _batch_run("small", PAR_CPU_SEQS, PAR_CPU_FRAMES, staged[:PAR_CPU_FRAMES])
+    kf_g = [p[0].new_kf_slots for p in rg["pairs"]]
+    kf_c, poses_c = cpu.result()
+    diffs = [_pose_diff(a, b) for a, b in zip(rg["poses"], poses_c)]
+    dt, ang = max(float(d[0].max()) for d in diffs), max(float(d[1].max()) for d in diffs)
+    say("parallel_card_vs_cpu", sequences=PAR_CPU_SEQS, frames=PAR_CPU_FRAMES, keyframes=kf_g,
+        max_dt_m=dt, max_drot_rad=ang)
+    if kf_g != kf_c or dt > POSE_TOL_M or ang > POSE_TOL_RAD:
+        raise AssertionError(f"batched card vs CPU: keyframes {kf_g} / {kf_c}, {dt} m, {ang} rad")
+
+    # 5. the sharded BA, virtual shards on the card
+    _sharded_window(window)
+    _sharded_global()
+    _sharded_mapper(sys_scene, sys_pairs, unsharded)
+    return launches
+
+
+def _sharded_window(p: schur.BAProblem):
+    """Phase 7's window over meshes of 2 and 4 virtual shards on the card
+    against the unsharded card solve (tests/test_parallel.py:27-54's
+    tolerances); wall, launches and device busy of one LM iteration at 1,
+    2 and 4 shards."""
+    ref = _solve(p)
+    placed = _conditioned(ref[0], p)[0]
+    per_iter = {1: _profile_counts(lambda: (schur.local_ba(p, iters=1), torch.cuda.synchronize()))}
+    for n in PAR_SHARDS:
+        m = par_mesh.make_mesh(devices=["cuda:0"] * n)
+        step = sharded_ba.sharded_two_rounds(m)
+        sharded_ba.run_problem(step, p)  # warm-up
+        t0 = time.perf_counter()
+        q, err, kill = sharded_ba.run_problem(step, p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log = float(se3.se3_logmap(se3.inverse(ref[0].poses) @ q.poses)[p.pose_valid].abs().max())
+        # rtol = atol = 1e-3 (tests/test_parallel.py:48-50) over the
+        # conditioned landmarks; the others are printed
+        d = (q.pts - ref[0].pts).abs()
+        pts_ok = bool(torch.all((d <= 1e-3 + 1e-3 * ref[0].pts.abs())[placed]))
+        same_kill = bool(torch.equal(kill, ref[2]))
+        derr = abs(float(err) - float(ref[1]))
+        per_iter[n] = _profile_counts(lambda: (schur.local_ba(p, iters=1, mesh=m), torch.cuda.synchronize()))
+        say("parallel_sharded_window", shards=n, wall_ms=wall * 1e3, max_pose_log=log,
+            max_dpt_conditioned=float(d[placed].max()), landmarks_conditioned=int(placed.sum()),
+            max_dpt_other=float(d[p.pt_valid & ~placed].max()) if bool((p.pt_valid & ~placed).any()) else 0.0,
+            pts_within_tol=pts_ok, same_kill=same_kill, kills=int(kill.sum()), err=float(err),
+            err_unsharded=float(ref[1]))
+        if log > 1e-3 or not pts_ok or not same_kill or derr > 1e-2 * max(float(ref[1]), 1.0):
+            raise AssertionError(f"sharded window ({n} shards): pose log {log}, "
+                                 f"conditioned points {float(d[placed].max())}, "
+                                 f"kill equal {same_kill}, err {float(err)} vs {float(ref[1])}")
+    say("parallel_sharded_iteration", **{f"shards_{n}": v for n, v in per_iter.items()})
+
+
+def _sharded_global():
+    """run_global on phase 15's corridor map over 2 virtual shards: the
+    composed sharded + slabbed solve (8 slabs), phase 15's gates."""
+    m = par_mesh.make_mesh(devices=["cuda:0"] * PAR_SHARDS[0])
+    world, c, pert, mapper = _corridor_map(mesh=m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = mapper.run_global(max_landmarks=1 << 17)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_obs = int((c["obs_lm"] >= 0).sum())
+    new = world.kf_poses_host[:MAP_KF]
+    slabs = mapper.counters.get("global_ba_slabs")
+    say("parallel_sharded_global", shards=PAR_SHARDS[0], n_slabs=slabs, wall_s=wall, error=r["error"],
+        error_per_obs=r["error"] / n_obs, rel_err_before=_corridor_rel_err(pert, c),
+        rel_err_after=_corridor_rel_err(new, c))
+    if slabs != MAP_SLABS or not np.isfinite(r["error"]) or not r["error"] < 0.01 * n_obs:
+        raise AssertionError(f"sharded global BA: slabs {slabs}, error {r['error']} for {n_obs} obs")
+    if not _corridor_rel_err(new, c) < 0.7 * _corridor_rel_err(pert, c):
+        raise AssertionError("sharded global BA did not reduce the relative error")
+
+
+def _sharded_mapper(scene, pairs, unsharded):
+    """The facade with LocalMapper(mesh=2 virtual shards) over phase 8's
+    frames against phase 8's unsharded card run: the same keyframe slots
+    and BA count, poses within 1e-3 m."""
+    kf_ref, ba_ref, poses_ref = unsharded
+    sys_ = _system(scene, "cuda")
+    m = par_mesh.make_mesh(devices=["cuda:0"] * PAR_SHARDS[0])
+    old = sys_.mapper
+    sys_.mapper = local_mapper.LocalMapper(sys_.world, old.K.cpu().numpy(), float(old.baseline),
+                                           old.cfg, mesh=m)
+    t0 = time.perf_counter()
+    poses = _run_system(sys_, [torch.from_numpy(p).cuda() for p in pairs[:PAR_MAPPER_FRAMES]])
+    wall = time.perf_counter() - t0
+    dt, ang = _pose_diff(poses, poses_ref)
+    say("parallel_sharded_mapper", shards=PAR_SHARDS[0], frames=PAR_MAPPER_FRAMES, wall_s=wall,
+        keyframes=sys_.tracker.new_kf_slots, ba_runs=sys_.mapper.ba_count, max_dt_m=float(dt.max()),
+        max_drot_rad=float(ang.max()))
+    if sys_.tracker.new_kf_slots != kf_ref or sys_.mapper.ba_count != ba_ref or dt.max() > POSE_TOL_M:
+        raise AssertionError(f"sharded mapper: keyframes {sys_.tracker.new_kf_slots} / {kf_ref}, "
+                             f"BA {sys_.mapper.ba_count} / {ba_ref}, {dt.max()} m")
+
+
 def main() -> int:
     global _POOL
     with concurrent.futures.ProcessPoolExecutor(
@@ -1673,21 +2199,29 @@ def run() -> int:
     sys_scene = synthetic.make_scene(n_frames=SYS_SCENE_FRAMES, n_points=900, width=WIDTH,
                                      height=HEIGHT, fps=20.0, seed=SEED)
     launches, sys_pairs, window, sys_, sync_fps = phase_system(sys_scene, ate_trk)
+    bins = datasets.bin_imu_per_frame(sys_scene.imu, sys_scene.times)
+    # the CPU sides of phases 8, 10 and 11, on the pool while the card runs
+    # phases 7 and 15 (whose walls moved by under 6% with them, PERF.md)
+    cpu_sync, cpu_async, cpu_imu = (cpu_system(sys_scene, sys_pairs),
+                                    cpu_system(sys_scene, sys_pairs, async_ba=True),
+                                    cpu_system(sys_scene, sys_pairs, IMU_CPU_FRAMES, bins, imu=True))
     phase_ba(window, sys_)
     phase_global_ba(sys_, sys_scene)
-    del sys_, window
-    phase_system_card_vs_cpu(sys_scene, sys_pairs)
+    del sys_
+    unsharded = phase_system_card_vs_cpu(sys_scene, sys_pairs, cpu_sync)
     launches_async = phase_async(sys_scene, sys_pairs, sync_fps)
-    phase_system_card_vs_cpu(sys_scene, sys_pairs, "async_card_vs_cpu", async_ba=True)
-    bins = datasets.bin_imu_per_frame(sys_scene.imu, sys_scene.times)
-    launches_imu = phase_imu(sys_scene, sys_pairs, bins)
+    phase_system_card_vs_cpu(sys_scene, sys_pairs, cpu_async, "async_card_vs_cpu", async_ba=True)
+    launches_imu = phase_imu(sys_scene, sys_pairs, bins, cpu_imu)
     launches_kitti, launches_driver_mono = phase_driver()
     launches_mono = phase_mono()
     launches_recovery = phase_recovery()
-    launches_loop = phase_loop(loop_scene)
+    par_renders: dict = {}
+    launches_loop = phase_loop(loop_scene, while_running=lambda: start_parallel_renders(par_renders))
     phase_loop_card_vs_cpu()
     phase_pose_graph()
     launches_ds_kitti, launches_ds_euroc = phase_dataset()
+    t_batch = _batch_tables(torch.device("cuda"), smi)
+    launches_par = phase_parallel(window, sys_scene, sys_pairs, unsharded, par_renders)
     report = {"kernels": [{
         "name": "extract_windows",
         "route": "cuda",
@@ -1699,7 +2233,7 @@ def run() -> int:
                               "kitti_driver": launches_kitti, "mono_driver": launches_driver_mono,
                               "mono_system": launches_mono, "relocalization": launches_recovery,
                               "loop_circuit": launches_loop, "dataset_kitti": launches_ds_kitti,
-                              "dataset_euroc": launches_ds_euroc},
+                              "dataset_euroc": launches_ds_euroc, **launches_par},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],
@@ -1712,7 +2246,8 @@ def run() -> int:
         **{f"{name}_table": {k: tab[k] for k in (
             "max_abs_err", "launches_per_frame", "device_ms", "host_ms_per_call", "plain_ms",
             "bound_ms", "library_ms")} for name, tab in (("kitti", t_kitti), ("mono", t_mono),
-                                                         ("loop", t_loop), ("kitti00", t_kitti00))},
+                                                         ("loop", t_loop), ("kitti00", t_kitti00),
+                                                         *t_batch.items())},
     }]}
     print(smi)
     print(json.dumps(report))

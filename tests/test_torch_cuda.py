@@ -4,8 +4,9 @@ VSlamSystem run on the card against the same runs on the CPU, the local
 BA's bit-reproducibility on the card, the async mapper's worker thread and
 side stream against the sync mapper, a short STEREO_IMU run, a short
 mono-inertial run, relocalization retrieval, the slab-chunked Schur
-reduction, the pose graphs and the split-map loop closure. They skip
-without a card. This file
+reduction, the pose graphs, the split-map loop closure, the batched
+frontend's kernel tables and run, and the sharded BA over virtual shards
+on one card. They skip without a card. This file
 imports no jax (the GPU machine has none); run it there with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -78,22 +79,23 @@ def test_extract_windows_wrapper_rejects_what_the_kernel_does_not_take(dev):
     assert patches.extract_windows(img, x0[:, :0], y0[:, :0], 31, 31).shape == (2, 0, 31, 31)
 
 
-def _bench_table(dev, seed=2):
-    """A full 8-level table at the bench shapes (752x480, scale 1.2, 1024
-    keys per view, L+R), with out-of-range corners in the first and last
-    level and a ninth level without slots that is smaller than a window."""
+def _bench_table(dev, seed=2, B=2, H=480, W=752, keys=1024, n_levels=8):
+    """A full table at the bench shapes (752x480, scale 1.2, 8 levels, 1024
+    keys per view, L+R: B=2), with out-of-range corners in the first and
+    last level and an extra level without slots that is smaller than a
+    window."""
     rng = np.random.default_rng(seed)
     levels, counts, x0s, y0s = [], [], [], []
-    shapes = pyramid.level_shapes(480, 752, 8, 1.2) + [(20, 25)]
-    quotas = extract.level_quotas(1024, 8, 1.2) + [0]
+    shapes = pyramid.level_shapes(H, W, n_levels, 1.2) + [(20, 25)]
+    quotas = extract.level_quotas(keys, n_levels, 1.2) + [0]
     for (h, w), q in zip(shapes, quotas):
-        levels.append(torch.from_numpy(rng.uniform(0.0, 255.0, size=(2, h, w)).astype(np.float32)).to(dev))
+        levels.append(torch.from_numpy(rng.uniform(0.0, 255.0, size=(B, h, w)).astype(np.float32)).to(dev))
         counts.append(q)
-        x0s.append(rng.integers(0, max(w - 31, 0) + 1, size=(2, q)).astype(np.int32))
-        y0s.append(rng.integers(0, max(h - 31, 0) + 1, size=(2, q)).astype(np.int32))
+        x0s.append(rng.integers(0, max(w - 31, 0) + 1, size=(B, q)).astype(np.int32))
+        y0s.append(rng.integers(0, max(h - 31, 0) + 1, size=(B, q)).astype(np.int32))
     x0, y0 = np.concatenate(x0s, 1), np.concatenate(y0s, 1)
     x0[0, 0], y0[0, 0] = 100_000, -7
-    x0[1, -1], y0[1, -1] = -3, 1_000
+    x0[-1, -1], y0[-1, -1] = -3, 1_000
     return levels, counts, torch.from_numpy(x0).to(dev), torch.from_numpy(y0).to(dev)
 
 
@@ -109,6 +111,61 @@ def test_extract_windows_levels_kernel_equals_plain_version_on_bench_table(dev):
         many = [levels[-2]] * (patches.MAX_LEVELS + 1)
         patches.extract_windows_levels(many, [1] * len(many), x0[:, : len(many)].contiguous(),
                                        y0[:, : len(many)].contiguous(), 31, 31)
+
+
+@pytest.mark.parametrize(
+    "B, H, W, keys, n_levels",
+    [(8, 480, 752, 1024, 8), (16, 240, 320, 512, 4)],
+    ids=["bench-4-sequences", "run_batch-8-sequences"],
+)
+def test_extract_windows_levels_kernel_on_batched_tables(dev, B, H, W, keys, n_levels):
+    """The tables of a batched frame (2S views: 4 sequences at the bench
+    shape, 8 at run_batch's) in one launch, torch.equal to the plain
+    version."""
+    levels, counts, x0, y0 = _bench_table(dev, 4, B, H, W, keys, n_levels)
+    n0 = patches.LAUNCHES
+    out = patches.extract_windows_levels(levels, counts, x0, y0, 31, 31)
+    torch.cuda.synchronize()
+    assert patches.LAUNCHES == n0 + 1 and out.shape == (B, keys, 31, 31)
+    assert torch.equal(out, patches.extract_windows_levels_ref(levels, counts, x0, y0, 31, 31))
+
+
+def test_batched_frontend_on_card_matches_cpu(dev):
+    """Two sequences x 4 frames of run_batch's configuration through the
+    batched frontend on the card and on the CPU: one extract_windows launch
+    per batched frame (and one per sequence at frame 0), the same
+    keyframes, poses within 1e-3 m."""
+    from vslam_torch import run_batch
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        scenes, pairs, front = run_batch.build(2, 4, "small", d)
+        frames = [[(sc.render(f), sc.render(f, right=True)) for sc in scenes] for f in range(4)]
+        n0 = patches.LAUNCHES
+        run_batch.run_frames(front, pairs, frames)
+        out[d.type] = (patches.LAUNCHES - n0, [p[0].new_kf_slots for p in pairs],
+                       np.stack([p[0].trajectory() for p in pairs]))
+    assert out["cuda"][0] == 2 + 3 and out["cpu"][0] == 0
+    assert out["cuda"][1] == out["cpu"][1]
+    assert np.abs(out["cuda"][2][..., :3, 3] - out["cpu"][2][..., :3, 3]).max() < 1e-3
+
+
+def test_sharded_ba_on_card_with_virtual_shards(dev):
+    """The 2-round BA over meshes of 2 and 4 virtual shards on one card
+    against the unsharded card solve (tests/test_parallel.py:36-54's
+    tolerances)."""
+    from vslam_torch.parallel import mesh, sharded_ba
+
+    p = _on(_ba_problem(), dev)
+    ref = schur.local_ba_two_rounds(p)
+    for n in (2, 4):
+        m = mesh.make_mesh(devices=[dev] * n)
+        q, err, kill = sharded_ba.run_problem(sharded_ba.sharded_two_rounds(m), p)
+        rel = torch.linalg.inv(ref[0].poses) @ q.poses
+        assert float(se3.se3_logmap(rel).abs().max()) < 1e-3
+        assert torch.allclose(q.pts, ref[0].pts, rtol=1e-3, atol=1e-3)
+        assert torch.equal(kill, ref[2])
+        assert abs(float(err) - float(ref[1])) <= 1e-2 * max(float(ref[1]), 1.0)
 
 
 def test_extract_batch_launches_the_kernel_once(dev):

@@ -2,7 +2,7 @@
 the CPU: a few frames of the EuRoC-geometry scene at its full width
 through the async facade (the loop circuit with loop closure on), the
 scene table and config it shares with examples/run_synthetic.py, --viz,
-and the dataset driver's option that is not ported yet."""
+and the dataset driver's --shards."""
 
 import importlib.util
 import json
@@ -93,8 +93,27 @@ def test_driver_viz_writes_the_viewer(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv, item", [pytest.param(["--shards", "2"], "A12", id="shards-A12")])
 def test_driver_options_not_ported_raise(tmp_path, argv, item):
-    """The dataset driver's --shards N > 1 (the mesh-sharded BA) raises."""
+    """The dataset driver's --shards N (ROADMAP A12, the mesh-sharded BA,
+    once not ported) runs: 4 frames of a 320x240 KITTI-layout sequence with
+    the bundle adjustments over 2 virtual CPU shards."""
+    from PIL import Image
+
+    from vslam_torch.utils import synthetic
+
+    W, H, n = 320, 240, 4
+    scene = synthetic.make_scene(n_frames=n, n_points=400, width=W, height=H, fps=10.0, seed=7)
+    for right, sub in ((False, "image_0"), (True, "image_1")):
+        os.makedirs(tmp_path / sub)
+        for f in range(n):
+            img = np.clip(scene.render(f, right=right), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(tmp_path / sub / f"{f:06d}.png")
+    np.savetxt(tmp_path / "times.txt", scene.times)
+    conf = run_synthetic.config(W, H, 10.0, 512, 1)
+    conf["imagesPath"] = str(tmp_path)
+    conf["FE"]["nLevels"] = 4
     cfg = tmp_path / "c.yaml"
-    cfg.write_text(yaml.safe_dump(run_synthetic.config(64, 48, 10.0, 128, 1)))
-    with pytest.raises(NotImplementedError, match=item):
-        run_dataset.main([str(cfg), "--device", "cpu"] + argv)
+    cfg.write_text(yaml.safe_dump(conf))
+    out = tmp_path / "traj.txt"
+    r = run_dataset.main([str(cfg), "--device", "cpu", "--out", str(out)] + argv)
+    assert r["frames"] == n, item
+    assert np.loadtxt(out).shape == (n, 12)

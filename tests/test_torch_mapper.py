@@ -3,8 +3,8 @@ vslam_tpu on the CPU, on tests/test_system.py's scene (320x240, 512
 features, 4 levels, 12 frames, seed 7): one JAX system run (the world is
 snapshotted before each local-BA run), the port's system on the same
 frames, and the mapper's pieces on maps converted from the JAX snapshots
-(``vslam_torch.models.convert``). Also: the paths that are not ported
-raise, and the camera and trajectory helpers match the JAX ones."""
+(``vslam_torch.models.convert``). Also: the paths once not ported (the
+mesh, shards) run, and the camera and trajectory helpers match the JAX ones."""
 
 import dataclasses
 import os
@@ -438,17 +438,22 @@ def test_trajectory_io_matches_jax(tmp_path, scene):
 
 
 def test_unported_paths_raise(runs, tmp_path):
-    """Shards raise at construction (loop_closure=True builds the
-    closer), a mesh and observation-row sharding in the BA raise; MONOCULAR
-    (sync or async) builds a MonoTracker; global BA and mono triangulation
-    run on every mapper entry (sync, staged and async) of the stereo map."""
+    """The paths once not ported (ROADMAP A12) run: shards=2 on the CPU
+    gives the mapper a 2-shard mesh and "auto" an unsharded one (one device);
+    a mesh that cannot divide the landmark slots or the observation rows
+    raises ValueError, as JAX's does (local_mapper.py:656-661).
+    loop_closure=True builds the closer; MONOCULAR (sync or async) builds a
+    MonoTracker; global BA and mono triangulation run on every mapper entry
+    (sync, staged and async) of the stereo map."""
     from vslam_torch import run_synthetic
+    from vslam_torch.parallel import mesh as tmesh
 
     conf = TConfig.from_dict(_config())
     params = ttr.TrackerParams(**PARAMS)
-    for kw, what in (({"shards": 2}, "A12"), ({"shards": "auto"}, "A12")):
-        with pytest.raises(NotImplementedError, match=what):
-            tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu", **kw)
+    two = tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu", shards=2)
+    assert two.mapper.mesh.size == 2
+    auto = tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu", shards="auto")
+    assert auto.mapper.mesh is None
     lc = tsys.VSlamSystem(conf, **CAPS, tracker_params=params, device="cpu", loop_closure=True)
     assert lc.loop_closer is not None and lc.loop_closer.world is lc.world
     for async_ba in (False, True):
@@ -464,13 +469,13 @@ def test_unported_paths_raise(runs, tmp_path):
                  lambda: m.finish(m.run_async_staged(n_kf - 1, mono=True))):
         assert call()["kf_slot"] == n_kf - 1
     assert isinstance(m.find_new_points(n_kf - 1, mono=True), np.ndarray)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tlm.LocalMapper(ts.world, np.eye(3), BL, mesh=object())
+    with pytest.raises(ValueError, match="must divide landmark slots"):
+        tlm.LocalMapper(ts.world, np.eye(3), BL, mesh=tmesh.make_mesh(3, device="cpu"))
     p = tsch.BAProblem(*[torch.zeros(1)] * len(tsch.BAProblem._fields))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tsch.local_ba(p, axis_name="ba")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tsch.local_ba_two_rounds(p, n_slabs=4, axis_name="ba")
+    with pytest.raises(ValueError, match="observation rows"):
+        tsch.local_ba(p, mesh=tmesh.make_mesh(2, device="cpu"))
+    with pytest.raises(ValueError, match="observation rows"):
+        tsch.local_ba_two_rounds(p, n_slabs=4, mesh=tmesh.make_mesh(2, device="cpu"))
     # the trajectory files the facade writes
     ts.save_trajectory(str(tmp_path / "traj.txt"), times=np.arange(N_FRAMES) * 0.1)
     assert np.loadtxt(tmp_path / "traj.txt").shape == (N_FRAMES, 12)

@@ -250,8 +250,9 @@ def test_unported_paths_raise(scene):
 
 
 def test_port_never_imports_jax():
-    """``import vslam_torch`` plus a 2-frame CPU track, in a fresh
-    interpreter where importing jax fails loudly."""
+    """``import vslam_torch`` plus a 2-frame CPU track and a 2-frame batch
+    of two sequences, in a fresh interpreter where importing jax fails
+    loudly."""
     code = textwrap.dedent(
         """
         import importlib.abc, sys
@@ -278,6 +279,20 @@ def test_port_never_imports_jax():
             t.track(s.render(f), s.render(f, right=True))
         assert t.trajectory().shape == (2, 4, 4)
         assert w.n_landmarks > 0
+        # the parallel layer: two sequences through the batched frontend,
+        # and a BA over two virtual shards
+        from vslam_torch import bench_tracker, run_batch  # noqa: F401
+        from vslam_torch.ops import schur
+        from vslam_torch.parallel import mesh, multi_seq, sharded_ba
+        ts = [tracker.StereoTracker(s.K, s.baseline, 160, 120,
+                                    map_state.WorldMap(lm_capacity=1024, kf_capacity=8, keys_per_kf=128,
+                                                       device="cpu"), p, device="cpu") for _ in range(2)]
+        front = multi_seq.BatchedStereoFrontend(ts)
+        for f in range(2):
+            front.track([(s.render(f), s.render(f, right=True))] * 2)
+        front.flush()
+        assert all(x.trajectory().shape == (2, 4, 4) for x in ts)
+        assert sharded_ba.sharded_two_rounds(mesh.make_mesh(2, device="cpu")) is not None
         assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
         print("NO_JAX_OK")
         """

@@ -1,9 +1,9 @@
 """vslam_torch — the PyTorch + CUDA port of vslam_tpu.
 
 The JAX package ``vslam_tpu`` is the reference; this package mirrors its
-layout and names (``geometry/``, ``ops/``, ``models/``, ``utils/``) so each
-module's counterpart is easy to find, and adds ``kernels/`` for the CUDA
-sources and their loader.
+layout and names (``geometry/``, ``ops/``, ``models/``, ``utils/``,
+``parallel/``) so each module's counterpart is easy to find, and adds
+``kernels/`` for the CUDA sources and their loader.
 
 Rules of the port:
 - tensors live on the device the caller names (``StereoTracker`` and
@@ -13,7 +13,8 @@ Rules of the port:
   (``kernels/csrc``), with a plain PyTorch version beside it that serves
   CPU tensors and is the kernel's parity oracle;
 - ``vmap`` becomes an explicit batch dimension, ``lax.while_loop`` a Python
-  loop, and ``jit`` has no counterpart;
+  loop, ``shard_map`` a Python loop over the mesh's shards with explicit
+  collectives, and ``jit`` has no counterpart;
 - this package never imports ``jax``.
 """
 

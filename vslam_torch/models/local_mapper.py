@@ -27,8 +27,10 @@ with bitcast indices) is not carried.
 
 Mono keyframes take :func:`_triangulate_new_points_mono` (``mono=True``),
 and :meth:`LocalMapper.run_global` solves the whole map with the Schur
-reduction chunked over landmark slabs. Not ported: a device mesh (the
-sharded BA, ROADMAP A12) raises NotImplementedError.
+reduction chunked over landmark slabs. With a device mesh (``mesh=``,
+vslam_torch/parallel/mesh.py) every BA, the async worker's and the global
+one included, runs sharded (``ops/schur.local_ba_two_rounds`` with the
+mesh; the global BA then composes the mesh with the landmark slabs).
 """
 
 from __future__ import annotations
@@ -50,10 +52,6 @@ ANCHORS = 8  # fixed out-of-window observer KFs (src/OptimizationBA.cpp:445-516)
 WTOT = WINDOW + ANCHORS  # pose slots per BA problem
 LM_SLOTS = 4096  # landmark slots per BA problem
 SPAWN_TRI = 512  # new-landmark budget per triangulation pass
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"vslam_torch: {what} is not ported yet")
 
 
 def pending_ready(pending: dict) -> bool:
@@ -502,9 +500,9 @@ class LocalMapper:
         config: LocalMapperConfig | None = None,
         mesh=None,
     ):
-        """Runs on ``world.device``. `mesh` (the sharded BA) is not ported."""
-        if mesh is not None:
-            _not_ported("the mesh-sharded local BA (ROADMAP A12)")
+        """Runs on ``world.device``. `mesh` (a parallel.mesh.Mesh whose first
+        device is the world's) shards every BA over it; its size must
+        divide the landmark slots and the observation rows of a window."""
         self.world = world
         dev = world.device
         self.K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
@@ -516,10 +514,30 @@ class LocalMapper:
         full_rows = WTOT * (world.keys_per_kf + world.right_obs_per_kf)
         self._obs_cap = self.cfg.obs_cap or min(6 * world.keys_per_kf, full_rows)
         self._lm_cap = self.cfg.lm_cap or LM_SLOTS
+        # a mesh of one shard is the unsharded solve
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            n = mesh.size
+            if self._lm_cap % n or self._obs_cap % n:
+                raise ValueError(
+                    f"mesh size {n} must divide landmark slots "
+                    f"{self._lm_cap} and observation rows {self._obs_cap}"
+                )
+            d0 = mesh.devices[0]
+            if d0.type != dev.type or (d0.index or 0) != (dev.index or 0):
+                raise ValueError(f"the mesh's first device {d0} is not the world's {dev}")
         # the async path's worker thread and, on CUDA, its side stream;
         # made at the first async BA
         self._pool: concurrent.futures.ThreadPoolExecutor | None = None
         self._side: torch.cuda.Stream | None = None
+
+    def _two_rounds(self, p: schur.BAProblem, n_slabs: int = 1, stats: list | None = None):
+        """The 2-round BA of a problem: over the mesh when there is one."""
+        cfg = self.cfg
+        return schur.local_ba_two_rounds(
+            p, iters1=cfg.iters_round1, iters2=cfg.iters_round2, mesh=self.mesh, n_slabs=n_slabs,
+            stats=stats,
+        )
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.world.device)
@@ -691,12 +709,9 @@ class LocalMapper:
         for :meth:`run_global`) with the 2-round BA, write it back, then
         the host side: the triangulation's (if any), poses and severed
         observations. Returns re-anchoring info for the tracker."""
-        cfg = self.cfg
         old_pose = self.world.kf_poses_host[kf_slot].copy()
         iters: list = []
-        p2, err, kill = schur.local_ba_two_rounds(
-            p, iters1=cfg.iters_round1, iters2=cfg.iters_round2, n_slabs=n_slabs, stats=iters
-        )
+        p2, err, kill = self._two_rounds(p, n_slabs, stats=iters)
         self._writeback(p, p2, kill, kf_slots, kf_valid, lm_safe, take)
         self.metrics.record("ba_dispatch", time.perf_counter() - t0)
         self.counters.inc("lm_iters_round1", iters[0])
@@ -812,13 +827,10 @@ class LocalMapper:
         reductions split, so the solve gives the sync path's bits."""
         t0 = time.perf_counter()
         iters: list = []
-        cfg = self.cfg
         done = None
         if ready is None:
             torch.set_num_threads(n_threads)
-            p2, err, kill = schur.local_ba_two_rounds(
-                p, iters1=cfg.iters_round1, iters2=cfg.iters_round2, stats=iters
-            )
+            p2, err, kill = self._two_rounds(p, stats=iters)
         else:
             if self._side is None:
                 self._side = torch.cuda.Stream(device=p.poses.device)
@@ -827,9 +839,7 @@ class LocalMapper:
                 side.wait_event(ready)
                 for t in p:
                     t.record_stream(side)
-                p2, err, kill = schur.local_ba_two_rounds(
-                    p, iters1=cfg.iters_round1, iters2=cfg.iters_round2, stats=iters
-                )
+                p2, err, kill = self._two_rounds(p, stats=iters)
                 done = torch.cuda.Event()
                 done.record(side)
         return {"p2": p2, "err": err, "kill": kill, "iters": iters, "done": done,
@@ -959,19 +969,26 @@ class LocalMapper:
         if n_ids == 0:
             return None
         L_cap = _round_cap(n_ids, 1024, max(max_landmarks, 1024))
-        # sentinel ids above any slot keep the padded list sorted
-        lm_ids = np.concatenate([ids, np.full(L_cap - n_ids, w.lm_capacity, np.int64)])
         n_obs = int((tbl >= 0).sum()) + int((tbl_r >= 0).sum())
         obs_cap = _round_cap(n_obs + 1024, 4096, Wg * (w.keys_per_kf + w.right_obs_per_kf))
+        n_mesh = self.mesh.size if self.mesh is not None else 1
+        # the sharded solve slices the rows as O / mesh size per shard: round up
+        obs_cap = -(-obs_cap // n_mesh) * n_mesh
 
         hpl_bytes = Wg * L_cap * 18 * 4
         n_slabs = 1
         while hpl_bytes // n_slabs > self.GLOBAL_SLAB_BYTES and n_slabs < L_cap // self.GLOBAL_MIN_SLAB:
             n_slabs *= 2
+        # each slab reduce-scatters into mesh-size sub-slabs: L_cap must
+        # divide by n_slabs x mesh size (the padding slots are invalid)
+        L_cap = -(-L_cap // (n_slabs * n_mesh)) * n_slabs * n_mesh
+        # sentinel ids above any slot keep the padded list sorted
+        lm_ids = np.concatenate([ids, np.full(L_cap - n_ids, w.lm_capacity, np.int64)])
         if n_slabs > 1:
             print(
                 f"[local_mapper] global BA: W={n} L={n_ids} -> Schur reduction "
                 f"chunked over {n_slabs} landmark slabs ({hpl_bytes >> 20} MiB dense Hpl)"
+                + (f", sharded over {n_mesh} devices" if n_mesh > 1 else "")
             )
         self.counters.inc("global_ba_slabs", n_slabs)
         cfg = self.cfg

@@ -19,9 +19,11 @@ tracked frame after it, the consume (early landmark publication, then
 re-anchoring) before the third, at a fixed latency with
 ``deterministic_ba_latency`` or once the solve is ready (at most
 ``ba_max_latency_frames``) without it. Everything runs on ``device`` (the
-GPU unless the caller asks for the CPU).
-
-Not ported, raising NotImplementedError: ``shards`` (ROADMAP A12).
+GPU unless the caller asks for the CPU). ``shards=N`` shards the mapper's
+bundle adjustments over a mesh of N shards (vslam_torch/parallel): N
+distinct cards on CUDA (raising if there are fewer), N virtual shards on
+the CPU; ``"auto"`` takes every visible card, so it is unsharded on one
+card and on the CPU.
 """
 
 from __future__ import annotations
@@ -31,12 +33,9 @@ import torch
 
 from vslam_torch.geometry import camera as cam
 from vslam_torch.models import local_mapper, map_state, tracker
+from vslam_torch.parallel import mesh as mesh_mod
 from vslam_torch.utils import trajectory as traj_io
 from vslam_torch.utils.config import ConfigFile, SlamMode
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"vslam_torch: {what} is not ported yet")
 
 
 class VSlamSystem:
@@ -60,8 +59,6 @@ class VSlamSystem:
         keyframe and correct the whole trajectory (models/loop_closure)."""
         self.conf = conf
         self.mode = mode if mode is not None else conf.slam_mode
-        if shards is not None and shards != 1:
-            _not_ported("shards (the mesh-sharded local BA, ROADMAP A12)")
         self.device = torch.device(device)
         self.rig = cam.StereoCamera.from_config(conf)
         K = self.rig.left.intrinsics.astype(np.float32)
@@ -120,9 +117,16 @@ class VSlamSystem:
         if g is not None and imu_cfg is not None:
             self.tracker.set_gravity(np.asarray(g, np.float32))
             self._gravity_set = True
+        mesh = None
+        if shards is not None and shards != 1:
+            auto = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            n = auto if shards == "auto" else int(shards)
+            if n > 1:
+                mesh = mesh_mod.make_mesh(n, device=self.device)
         self.mapper = local_mapper.LocalMapper(
             self.world, K, self.rig.baseline,
             local_mapper.LocalMapperConfig(n_levels=params.n_levels, scale=params.scale),
+            mesh=mesh,
         )
         # rectification (EuRoC-style unrectified rigs): maps on the device
         self._maps = None

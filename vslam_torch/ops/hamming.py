@@ -23,14 +23,15 @@ def hamming_matrix(
     a_valid: torch.Tensor | None = None,
     b_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """(N, 256) x (M, 256) +-1 descriptors -> (N, M) float32 Hamming
-    distances; invalid rows/cols get INVALID."""
-    dot = a_signed.to(torch.float32) @ b_signed.to(torch.float32).T
+    """(..., N, 256) x (..., M, 256) +-1 descriptors -> (..., N, M) float32
+    Hamming distances (leading dimensions index independent problems);
+    invalid rows/cols get INVALID."""
+    dot = a_signed.to(torch.float32) @ b_signed.to(torch.float32).transpose(-1, -2)
     d = (N_BITS - dot) * 0.5
     if a_valid is not None:
-        d = torch.where(a_valid[:, None], d, INVALID)
+        d = torch.where(a_valid[..., :, None], d, INVALID)
     if b_valid is not None:
-        d = torch.where(b_valid[None, :], d, INVALID)
+        d = torch.where(b_valid[..., None, :], d, INVALID)
     return d
 
 

@@ -15,7 +15,9 @@ The JAX ``lax.scan`` runs over a fixed 64 rows padded with dt == 0 no-ops.
 Here the host drops every row with dt <= 0 before the loop and iterates
 over the real rows only, in the same order; the per-row terms that do not
 depend on the running state (the rotation increment, the right Jacobian,
-hat(a), the gyro noise input) are computed for all rows at once.
+hat(a), the gyro noise input) are computed for all rows at once. A batch
+of sequences (a leading S) runs one loop over the longest sequence's rows;
+a sequence whose rows ran out keeps its state, as a dt == 0 pad would.
 """
 
 from __future__ import annotations
@@ -51,9 +53,23 @@ class ImuParams(NamedTuple):
     integration_sigma: float = 1e-4
 
 
-def _f32_square(x: float) -> float:
-    """x**2 rounded as the JAX module computes it, on a float32 scalar."""
+def _f32_square(x):
+    """x**2 rounded as the JAX module computes it, on a float32 scalar; a
+    tensor (per-sequence parameters) is squared as it is."""
+    if isinstance(x, torch.Tensor):
+        return x * x
     return float(np.float32(x) * np.float32(x))
+
+
+def _f32(x):
+    """A parameter as float32: a Python float rounded, a tensor as it is."""
+    return x if isinstance(x, torch.Tensor) else float(np.float32(x))
+
+
+def _lead(x, nd: int):
+    """A per-sequence (S,) parameter tensor with `nd` trailing unit
+    dimensions; a float as it is."""
+    return x.reshape(x.shape + (1,) * nd) if isinstance(x, torch.Tensor) else x
 
 
 def _so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
@@ -71,14 +87,15 @@ def _so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
     return eye - B * W + C * W2
 
 
-def empty_preint(device="cpu", dtype=torch.float32) -> PreintState:
-    eye = torch.eye(3, dtype=dtype, device=device)
-    zero = torch.zeros((3, 3), dtype=dtype, device=device)
-    z3 = torch.zeros(3, dtype=dtype, device=device)
+def empty_preint(device="cpu", dtype=torch.float32, batch: tuple = ()) -> PreintState:
+    z = dict(dtype=dtype, device=device)
+    eye = torch.eye(3, **z).expand(batch + (3, 3))
+    zero = torch.zeros(batch + (3, 3), **z)
+    z3 = torch.zeros(batch + (3,), **z)
     return PreintState(
-        dR=eye, dv=z3, dp=z3, dt=torch.zeros((), dtype=dtype, device=device),
+        dR=eye, dv=z3, dp=z3, dt=torch.zeros(batch, **z),
         dR_dbg=zero, dv_dba=zero, dv_dbg=zero, dp_dba=zero, dp_dbg=zero,
-        cov=torch.zeros((9, 9), dtype=dtype, device=device),
+        cov=torch.zeros(batch + (9, 9), **z),
     )
 
 
@@ -92,71 +109,93 @@ def active_rows(samples) -> np.ndarray:
 def preintegrate(samples, bias: torch.Tensor, params: ImuParams) -> PreintState:
     """integrateMeasurement over the samples with dt > 0, in order.
     `samples` is a (K, 7) host array (rows with dt <= 0 are no-ops, as in
-    the JAX scan) or a tensor of rows that are all active."""
+    the JAX scan) or a tensor of rows that are all active.
+
+    Batched: a (S, 6) `bias` preintegrates S sequences at once, `samples`
+    then being S host row arrays (a list, or an (S, K, 7) array) or an
+    (S, K, 7) tensor of active rows; the fields carry the leading S and the
+    parameters may be (S,) tensors. Each sequence's active rows move to
+    the front; a sequence whose rows ran out keeps its state (the JAX
+    scan's dt == 0 pads), without touching the others."""
     dev = bias.device
+    if bias.ndim == 1:
+        samples = samples[None] if isinstance(samples, torch.Tensor) else [samples]
+        return PreintState(*(x[0] for x in preintegrate(samples, bias[None], params)))
+    S = bias.shape[0]
     if isinstance(samples, torch.Tensor):
         rows = samples.to(dev, bias.dtype)
+        counts = np.full(S, rows.shape[1])
     else:
-        rows = torch.as_tensor(active_rows(samples)).to(dev, bias.dtype)
-    st = empty_preint(dev, bias.dtype)
-    if rows.shape[0] == 0:
+        act = [active_rows(x) for x in samples]
+        counts = np.array([len(r) for r in act])
+        pad = np.zeros((S, int(counts.max(initial=0)), 7), np.float32)
+        for i, r in enumerate(act):
+            pad[i, : len(r)] = r
+        rows = torch.as_tensor(pad).to(dev, bias.dtype)
+    st = empty_preint(dev, bias.dtype, (S,))
+    n_rows = rows.shape[1]
+    if n_rows == 0:
         return st
-    ba, bg = bias[:3], bias[3:]
-    dts = rows[:, 0]
-    w = rows[:, 1:4] - bg
-    a = rows[:, 4:7] - ba
-    wdt = w * dts[:, None]
-    dRi = se3.so3_expmap(wdt)  # (K, 3, 3)
+    ba, bg = bias[:, None, :3], bias[:, None, 3:]
+    dts = rows[..., 0]  # (S, K)
+    w = rows[..., 1:4] - bg
+    a = rows[..., 4:7] - ba
+    wdt = w * dts[..., None]
+    dRi = se3.so3_expmap(wdt)  # (S, K, 3, 3)
+    dRiT = dRi.transpose(-1, -2)
     Jr = _so3_right_jacobian(wdt)
     hat_a = se3.hat(a)
-    dtc = dts[:, None, None]
+    dtc = dts[..., None, None]  # (S, K, 1, 1)
     dt2c = dtc * dtc
     Jr_dt = Jr * dtc
     # gyro noise input: Bg = [Jr dt; 0; 0], only its theta block is nonzero
     inv_dt = 1.0 / torch.clamp(dtc, min=1e-9)
-    cov_g = _f32_square(params.gyro_noise) * inv_dt
-    cov_a = _f32_square(params.accel_noise) * inv_dt
-    cov_int = _f32_square(params.integration_sigma) * dtc
-    eye3 = torch.eye(3, device=dev)
-    zero3 = torch.zeros((3, 3), device=dev)
-    noise_g = torch.zeros((rows.shape[0], 9, 9), device=dev)
-    noise_g[:, :3, :3] = cov_g * (Jr_dt @ Jr_dt.transpose(-1, -2))
-    noise_int = cov_int * torch.eye(9, device=dev)  # (K, 9, 9)
+    cov_g = _lead(_f32_square(params.gyro_noise), 3) * inv_dt
+    cov_a = _lead(_f32_square(params.accel_noise), 3) * inv_dt
+    cov_int = _lead(_f32_square(params.integration_sigma), 3) * dtc
+    eye3 = torch.eye(3, device=dev).expand(S, 3, 3)
+    zero3 = torch.zeros((S, 3, 3), device=dev)
+    noise_g = torch.zeros((S, n_rows, 9, 9), device=dev)
+    noise_g[..., :3, :3] = cov_g * (Jr_dt @ Jr_dt.transpose(-1, -2))
+    noise_int = cov_int * torch.eye(9, device=dev)  # (S, K, 9, 9)
 
-    dR, dv, dp, dt_sum = st.dR, st.dv, st.dp, st.dt
-    dR_dbg, dv_dba, dv_dbg, dp_dba, dp_dbg, cov = (
-        st.dR_dbg, st.dv_dba, st.dv_dbg, st.dp_dba, st.dp_dbg, st.cov,
-    )
-    for k in range(rows.shape[0]):
-        dt, dt2 = dtc[k], dt2c[k]  # (1, 1): broadcast as scalars
+    cur = list(st)  # dR, dv, dp, dt, dR_dbg, dv_dba, dv_dbg, dp_dba, dp_dbg, cov
+    for k in range(n_rows):
+        dR, dv, dp, dt_sum, dR_dbg, dv_dba, dv_dbg, dp_dba, dp_dbg, cov = cur
+        dt, dt2 = dtc[:, k], dt2c[:, k]  # (S, 1, 1): broadcast as scalars
         Rk = dR
-        Ra = Rk @ a[k]
-        RH = Rk @ hat_a[k]
+        Ra = (Rk @ a[:, k, :, None])[..., 0]
+        RH = Rk @ hat_a[:, k]
         RH_dRdbg = RH @ dR_dbg
         Rdt, Rdt2 = Rk * dt, 0.5 * Rk * dt2
         A = torch.cat(
             [
-                torch.cat([dRi[k].T, zero3, zero3], dim=1),
-                torch.cat([-RH * dt, eye3, zero3], dim=1),
-                torch.cat([-0.5 * RH * dt2, eye3 * dt, eye3], dim=1),
+                torch.cat([dRiT[:, k], zero3, zero3], dim=-1),
+                torch.cat([-RH * dt, eye3, zero3], dim=-1),
+                torch.cat([-0.5 * RH * dt2, eye3 * dt, eye3], dim=-1),
             ],
-            dim=0,
+            dim=-2,
         )
-        Ba = torch.cat([zero3, Rdt, Rdt2], dim=0)
-        cov = A @ cov @ A.T + noise_g[k] + cov_a[k] * (Ba @ Ba.T) + noise_int[k]
-        dp_dbg = dp_dbg + dv_dbg * dt - 0.5 * RH_dRdbg * dt2
-        dp_dba = dp_dba + dv_dba * dt - Rdt2
-        dv_dbg = dv_dbg - RH_dRdbg * dt
-        dv_dba = dv_dba - Rdt
-        dR_dbg = dRi[k].T @ dR_dbg - Jr_dt[k]
-        dp = dp + dv * dt[0] + 0.5 * Ra * dt2[0]
-        dv = dv + Ra * dt[0]
-        dR = Rk @ dRi[k]
-        dt_sum = dt_sum + dts[k]
-    return PreintState(
-        dR=dR, dv=dv, dp=dp, dt=dt_sum, dR_dbg=dR_dbg, dv_dba=dv_dba,
-        dv_dbg=dv_dbg, dp_dba=dp_dba, dp_dbg=dp_dbg, cov=cov,
-    )
+        Ba = torch.cat([zero3, Rdt, Rdt2], dim=-2)
+        new = [
+            Rk @ dRi[:, k],
+            dv + Ra * dt[..., 0],
+            dp + dv * dt[..., 0] + 0.5 * Ra * dt2[..., 0],
+            dt_sum + dts[:, k],
+            dRiT[:, k] @ dR_dbg - Jr_dt[:, k],
+            dv_dba - Rdt,
+            dv_dbg - RH_dRdbg * dt,
+            dp_dba + dv_dba * dt - Rdt2,
+            dp_dbg + dv_dbg * dt - 0.5 * RH_dRdbg * dt2,
+            A @ cov @ A.transpose(-1, -2) + noise_g[:, k]
+            + cov_a[:, k] * (Ba @ Ba.transpose(-1, -2)) + noise_int[:, k],
+        ]
+        live = counts > k
+        if not live.all():  # some sequence's rows ran out: it keeps its state
+            m = torch.as_tensor(live, device=dev)
+            new = [torch.where(m.reshape((S,) + (1,) * (x.ndim - 1)), x, c) for x, c in zip(new, cur)]
+        cur = new
+    return PreintState(*cur)
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -182,7 +221,7 @@ def predict(T_wb_i, v_w_i, pre: PreintState, bias_i, bias_bar, gravity_w):
     dR, dv, dp = bias_corrected(pre, bias_i, bias_bar)
     Ri = T_wb_i[..., :3, :3]
     pi = T_wb_i[..., :3, 3]
-    dt = pre.dt
+    dt = pre.dt[..., None]
     Rj = Ri @ dR
     vj = v_w_i + gravity_w * dt + _mv(Ri, dv)
     pj = pi + v_w_i * dt + 0.5 * gravity_w * dt * dt + _mv(Ri, dp)
@@ -195,18 +234,18 @@ def cov_factor(pre: PreintState) -> torch.Tensor:
     sync on the error check."""
     cov = pre.cov + 1e-10 * torch.eye(9, dtype=pre.cov.dtype, device=pre.cov.device)
     L, info = torch.linalg.cholesky_ex(cov)
-    return torch.where(info == 0, L, float("nan"))
+    return torch.where((info == 0)[..., None, None], L, float("nan"))
 
 
 def _whitened(T_wb_i, v_w_i, bias_i, T_wb_j, v_w_j, bias_j, pre, bias_bar, gravity_w, params, L):
-    """(white (..., 15), r_R (..., 3), L, sig_inv (6,)): the whitened
+    """(white (..., 15), r_R (..., 3), L, sig_inv (..., 6)): the whitened
     residual, its raw rotation part, the covariance factor and the bias
     rows' inverse sigmas."""
     dR, dv, dp = bias_corrected(pre, bias_i, bias_bar)
     Ri, pi = T_wb_i[..., :3, :3], T_wb_i[..., :3, 3]
     Rj, pj = T_wb_j[..., :3, :3], T_wb_j[..., :3, 3]
     RiT = Ri.transpose(-1, -2)
-    dt = pre.dt
+    dt = pre.dt[..., None]
 
     r_R = se3.so3_logmap(dR.transpose(-1, -2) @ RiT @ Rj)
     r_v = _mv(RiT, v_w_j - v_w_i - gravity_w * dt) - dv
@@ -219,11 +258,12 @@ def _whitened(T_wb_i, v_w_i, bias_i, T_wb_j, v_w_j, bias_j, pre, bias_bar, gravi
 
     # bias random walk over the interval: sigma^2 = walk^2 * dt
     safe_dt = torch.clamp(dt, min=1e-6)
-    sig_ba = float(np.float32(params.accel_walk)) * torch.sqrt(safe_dt)
-    sig_bg = float(np.float32(params.gyro_walk)) * torch.sqrt(safe_dt)
+    sig_ba = _lead(_f32(params.accel_walk), 1) * torch.sqrt(safe_dt)
+    sig_bg = _lead(_f32(params.gyro_walk), 1) * torch.sqrt(safe_dt)
     r_b = bias_j - bias_i
     white_b = torch.cat([r_b[..., :3] / sig_ba, r_b[..., 3:] / sig_bg], dim=-1)
-    sig_inv = torch.cat([(1.0 / sig_ba).expand(3), (1.0 / sig_bg).expand(3)])
+    lead = sig_ba.shape[:-1]
+    sig_inv = torch.cat([(1.0 / sig_ba).expand(lead + (3,)), (1.0 / sig_bg).expand(lead + (3,))], dim=-1)
     return torch.cat([white9, white_b], dim=-1), r_R, L, sig_inv
 
 
@@ -245,9 +285,9 @@ def combined_residual_and_jacobian(
     T_wb_i, v_w_i, bias_i, T_wb_j, v_w_j, bias_j, pre: PreintState, bias_bar,
     gravity_w, params: ImuParams, L: torch.Tensor | None = None,
 ):
-    """:func:`combined_residual` (unbatched states) and its (15, 15)
-    Jacobian with respect to the j state [omega_b, rho_b, dv_j, db_j], the
-    body pose perturbed on the right, T_wb_j Exp([omega_b, rho_b]).
+    """:func:`combined_residual` and its (..., 15, 15) Jacobian with respect
+    to the j state [omega_b, rho_b, dv_j, db_j], the body pose perturbed on
+    the right, T_wb_j Exp([omega_b, rho_b]).
 
     The corrections dR, dv, dp use the frozen bias_i, so only r_R, r_v,
     r_p and the bias rows depend on the j state:
@@ -256,12 +296,14 @@ def combined_residual_and_jacobian(
     white, r_R, L, sig_inv = _whitened(
         T_wb_i, v_w_i, bias_i, T_wb_j, v_w_j, bias_j, pre, bias_bar, gravity_w, params, L
     )
-    RiT = T_wb_i[:3, :3].T
-    J9 = torch.zeros((9, 15), dtype=white.dtype, device=white.device)
-    J9[0:3, 0:3] = se3.so3_right_jacobian_inv(r_R)
-    J9[3:6, 6:9] = RiT
-    J9[6:9, 3:6] = RiT @ T_wb_j[:3, :3]
-    J = torch.zeros((15, 15), dtype=white.dtype, device=white.device)
-    J[:9] = torch.linalg.solve_triangular(L, J9, upper=False)
-    J[9:, 9:] = torch.diag(sig_inv)
+    lead = white.shape[:-1]
+    z = dict(dtype=white.dtype, device=white.device)
+    RiT = T_wb_i[..., :3, :3].transpose(-1, -2)
+    J9 = torch.zeros(lead + (9, 15), **z)
+    J9[..., 0:3, 0:3] = se3.so3_right_jacobian_inv(r_R)
+    J9[..., 3:6, 6:9] = RiT
+    J9[..., 6:9, 3:6] = RiT @ T_wb_j[..., :3, :3]
+    J = torch.zeros(lead + (15, 15), **z)
+    J[..., :9, :] = torch.linalg.solve_triangular(L, J9, upper=False)
+    J[..., 9:, 9:] = torch.diag_embed(sig_inv)
     return white, J

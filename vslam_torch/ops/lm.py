@@ -23,6 +23,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from vslam_torch.geometry import se3
+from vslam_torch.ops.project_match import per_problem
 
 CHI2_3DOF = 7.815  # reference include/FeatureTracker.h:56
 
@@ -111,14 +112,19 @@ def lm_solve(
 
 
 def _project(T_wc, pts_w, K, baseline):
-    """Left-camera coordinates of pts_w (M, 3) under each pose (B, 4, 4)."""
+    """Left-camera coordinates of pts_w under each pose (B, 4, 4): shared
+    points (M, 3) or one set per problem (B, M, 3)."""
     T_cw = se3.inverse(T_wc)
-    return se3.transform_points(T_cw, pts_w[None])  # (B, M, 3)
+    pts = pts_w if pts_w.ndim == 3 else pts_w[None]
+    return se3.transform_points(T_cw, pts)  # (B, M, 3)
 
 
 def _residuals(pc, obs, weights, is_stereo, is_right, valid, K, baseline, with_jac):
-    fx, fy = K[0, 0], K[1, 1]
-    cx, cy = K[0, 2], K[1, 2]
+    """K (3, 3) and a scalar baseline shared by the batch, or (B, 3, 3)
+    and (B,) per problem."""
+    fx, fy = per_problem(K[..., 0, 0]), per_problem(K[..., 1, 1])
+    cx, cy = per_problem(K[..., 0, 2]), per_problem(K[..., 1, 2])
+    baseline = per_problem(baseline)
     x, y = pc[..., 0], pc[..., 1]
     z = torch.clamp(pc[..., 2], min=0.05)
     u_l = fx * x / z + cx
@@ -126,9 +132,9 @@ def _residuals(pc, obs, weights, is_stereo, is_right, valid, K, baseline, with_j
     u_r = fx * (x - baseline) / z + cx
 
     u_pred = torch.where(is_right, u_r, u_l)
-    r_u = u_pred - obs[:, 0]
-    r_v = v_l - obs[:, 1]
-    r_ur = torch.where(is_stereo, u_r - obs[:, 2], 0.0)
+    r_u = u_pred - obs[..., 0]
+    r_v = v_l - obs[..., 1]
+    r_ur = torch.where(is_stereo, u_r - obs[..., 2], 0.0)
     # behind-camera rows COST (clamped z -> huge residual, clipped to 512 px)
     # instead of vanishing; see vslam_tpu/ops/lm.py:141-149
     w = torch.where(valid, weights, 0.0)
@@ -146,9 +152,10 @@ def _residuals(pc, obs, weights, is_stereo, is_right, valid, K, baseline, with_j
     dz = dpc[..., 2, :] * (pc[..., 2] > 0.05)[..., None]
     zz = (z * z)[..., None]
     zc = z[..., None]
-    du_l = fx * dx / zc - (fx * x)[..., None] * dz / zz
-    dv_l = fy * dy / zc - (fy * y)[..., None] * dz / zz
-    du_r = fx * dx / zc - (fx * (x - baseline))[..., None] * dz / zz
+    fx2, fy2 = per_problem(K[..., 0, 0], 2), per_problem(K[..., 1, 1], 2)  # against (B, M, 6)
+    du_l = fx2 * dx / zc - (fx * x)[..., None] * dz / zz
+    dv_l = fy2 * dy / zc - (fy * y)[..., None] * dz / zz
+    du_r = fx2 * dx / zc - (fx * (x - baseline))[..., None] * dz / zz
     J = torch.stack(
         [
             torch.where(is_right[..., None], du_r, du_l),
@@ -207,7 +214,10 @@ def motion_only_ba(
     max_iters: int = 100,
 ):
     """Pose-only LM with frozen landmarks (reference estimatePoseGTSAM,
-    no-IMU branch), solved from each of the B initial poses at once.
+    no-IMU branch), solved from each of the B initial poses at once. The
+    landmarks, observations, flags, `K` and `baseline` are shared by the B
+    problems, or carry the leading B (one problem set per sequence of a
+    batch: (B, M, ...), K (B, 3, 3), baseline (B,)).
 
     Two passes (vslam_tpu/ops/lm.py:motion_only_ba): a Huber-reweighted
     solve, a chi-squared sweep with stereo->mono demotion, then a plain
@@ -295,17 +305,31 @@ def motion_only_ba_imu(
     between-factor (sigma 1e-3), priors on x1/v1 at the propagated state,
     plus the projection/stereo factors of :func:`motion_only_ba`.
 
-    The state is (T_wc, v_w, bias), 6 + 3 + 6 = 15 dof, one problem. The
-    visual rows take the analytic projection Jacobian (pose columns only)
-    with the pass-1 Huber weight frozen at the linearization point; the 30
-    inertial, bias and prior rows take the analytic Jacobian of
-    :func:`imu.combined_residual_and_jacobian` and the SE(3) right
-    Jacobian of the pose prior, carried from the body perturbation to the
-    camera's by Ad(T_bc). Returns (T_opt (4, 4), v_opt (3,), bias_opt
-    (6,), chi2 (M,), inliers (M,), is_stereo_out (M,), LMResult of the
-    second pass)."""
+    The state is (T_wc, v_w, bias), 6 + 3 + 6 = 15 dof. The visual rows take
+    the analytic projection Jacobian (pose columns only) with the pass-1
+    Huber weight frozen at the linearization point; the 30 inertial, bias
+    and prior rows take the analytic Jacobian of
+    :func:`imu.combined_residual_and_jacobian` and the SE(3) right Jacobian
+    of the pose prior, carried from the body perturbation to the camera's
+    by Ad(T_bc). Returns (T_opt (4, 4), v_opt (3,), bias_opt (6,), chi2
+    (M,), inliers (M,), is_stereo_out (M,), LMResult of the second pass).
+
+    Batched: every argument with a leading S (the preintegration's fields
+    too; ImuParams fields floats or (S,) tensors) solves S independent
+    problems at once (one per sequence of a batch); the outputs then carry
+    the leading S."""
+    if T_init.ndim == 2:
+        one = lambda x: x[None] if isinstance(x, torch.Tensor) and x.ndim else x
+        out = motion_only_ba_imu(
+            *(one(x) for x in (T_init, v_init, bias_prev, T_prev_wb, v_prev)),
+            type(pre)(*(x[None] for x in pre)), gravity_w[None], imu_params, T_bc[None],
+            *(one(x) for x in (pts_w, obs, inv_sigma2, is_stereo, is_right, valid, K)),
+            one(baseline), max_iters=max_iters, bias_sigma=bias_sigma,
+        )
+        return (*(x[0] for x in out[:6]), out[6])
     from vslam_torch.ops import imu as imu_mod
 
+    S = T_init.shape[0]
     dev = T_init.device
     weights = torch.sqrt(inv_sigma2)
     huber_delta = float(torch.sqrt(torch.tensor(CHI2_3DOF, dtype=torch.float32)))
@@ -318,10 +342,10 @@ def motion_only_ba_imu(
     eye3 = torch.eye(3, device=dev)
 
     def classify(T, st):
-        chi2_3 = reproj_chi2(T[None], pts_w, obs, inv_sigma2, st, is_right, valid, K, baseline)[0]
+        chi2_3 = reproj_chi2(T, pts_w, obs, inv_sigma2, st, is_right, valid, K, baseline)
         chi2_2 = reproj_chi2(
-            T[None], pts_w, obs, inv_sigma2, torch.zeros_like(st), is_right, valid, K, baseline
-        )[0]
+            T, pts_w, obs, inv_sigma2, torch.zeros_like(st), is_right, valid, K, baseline
+        )
         demote = st & (chi2_3 >= CHI2_3DOF) & (chi2_2 < CHI2_3DOF)
         keep = valid & ((chi2_3 < CHI2_3DOF) | demote)
         return keep, st & ~demote
@@ -331,8 +355,8 @@ def motion_only_ba_imu(
         return (se3.retract(T, d[:, :6]), v + d[:, 6:9], b + d[:, 9:15])
 
     def inertial_rows(T_wc, v_w, b, with_jac):
-        """(30,) [CombinedImuFactor 15 | bias between 6 | pose prior 6 |
-        velocity prior 3] and, with_jac, their (30, 15) Jacobian."""
+        """(S, 30) [CombinedImuFactor 15 | bias between 6 | pose prior 6 |
+        velocity prior 3] and, with_jac, their (S, 30, 15) Jacobian."""
         T_wb = T_wc @ T_cb
         args = (T_prev_wb, v_prev, bias_prev, T_wb, v_w, b, pre, bias_prev, gravity_w, imu_params)
         if with_jac:
@@ -342,22 +366,22 @@ def motion_only_ba_imu(
         r_bias = (b - bias_prev) / bias_sigma
         r_prior_p = se3.se3_logmap(T_pred_wb_inv @ T_wb)
         r_prior_v = v_w - v_init
-        r = torch.cat([r_imu, r_bias, r_prior_p, r_prior_v])
+        r = torch.cat([r_imu, r_bias, r_prior_p, r_prior_v], dim=-1)
         if not with_jac:
             return r
-        J = torch.zeros((30, 15), device=dev)
-        J[:15] = J_imu
-        J[15:21, 9:15] = torch.eye(6, device=dev) / bias_sigma
-        J[21:27, :6] = se3.se3_right_jacobian_inv(r_prior_p)
-        J[27:30, 6:9] = eye3
-        J[:, :6] = J[:, :6] @ cam_to_body
+        J = torch.zeros((S, 30, 15), device=dev)
+        J[:, :15] = J_imu
+        J[:, 15:21, 9:15] = torch.eye(6, device=dev) / bias_sigma
+        J[:, 21:27, :6] = se3.se3_right_jacobian_inv(r_prior_p)
+        J[:, 27:30, 6:9] = eye3
+        J[:, :, :6] = J[:, :, :6] @ cam_to_body
         return r, J
 
     def solve(state0, mask, st, robust):
         def lin(state, with_jac):
             T, v, b = state
             pc = _project(T, pts_w, K, baseline)
-            r, J = _residuals(pc, obs, weights, st[None], is_right, mask[None], K, baseline, with_jac)
+            r, J = _residuals(pc, obs, weights, st, is_right, mask, K, baseline, with_jac)
             if robust:
                 # IRLS Huber on the visual rows, frozen per linearization
                 n = torch.sqrt(torch.sum(r * r, dim=-1) + 1e-18)
@@ -366,27 +390,24 @@ def motion_only_ba_imu(
                 if with_jac:
                     J = J * w_h[..., None, None]
             if not with_jac:
-                return torch.cat([r.reshape(1, -1), inertial_rows(T[0], v[0], b[0], False)[None]], dim=1)
-            r_in, J_in = inertial_rows(T[0], v[0], b[0], True)
-            J = J.reshape(1, -1, 6)
+                return torch.cat([r.reshape(S, -1), inertial_rows(T, v, b, False)], dim=1)
+            r_in, J_in = inertial_rows(T, v, b, True)
+            J = J.reshape(S, -1, 6)
             J_vis = torch.cat([J, J.new_zeros(J.shape[:2] + (9,))], dim=-1)
-            return (
-                torch.cat([r.reshape(1, -1), r_in[None]], dim=1),
-                torch.cat([J_vis, J_in[None]], dim=1),
-            )
+            return torch.cat([r.reshape(S, -1), r_in], dim=1), torch.cat([J_vis, J_in], dim=1)
 
         return lm_solve(
             lambda s: lin(s, True), lambda s: lin(s, False), state0,
             max_iters=max_iters, retract=retract,
         )
 
-    res1 = solve((T_init[None], v_init[None], bias_prev[None]), valid, is_stereo, robust=True)
-    keep, st1 = classify(res1.state[0][0], is_stereo)
-    enough = torch.sum(keep) >= torch.clamp(torch.sum(valid) // 4, min=6)
-    keep = torch.where(enough, keep, valid)
-    st1 = torch.where(enough, st1, is_stereo)
+    res1 = solve((T_init, v_init, bias_prev), valid, is_stereo, robust=True)
+    keep, st1 = classify(res1.state[0], is_stereo)
+    enough = torch.sum(keep, dim=-1) >= torch.clamp(torch.sum(valid, dim=-1) // 4, min=6)
+    keep = torch.where(enough[:, None], keep, valid)
+    st1 = torch.where(enough[:, None], st1, is_stereo)
     result = solve(res1.state, keep, st1, robust=False)
-    T_opt, v_opt, b_opt = (x[0] for x in result.state)
+    T_opt, v_opt, b_opt = result.state
     inliers, st_out = classify(T_opt, st1)
-    chi2 = reproj_chi2(T_opt[None], pts_w, obs, inv_sigma2, st_out, is_right, valid, K, baseline)[0]
+    chi2 = reproj_chi2(T_opt, pts_w, obs, inv_sigma2, st_out, is_right, valid, K, baseline)
     return T_opt, v_opt, b_opt, chi2, inliers, st_out, result

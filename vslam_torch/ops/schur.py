@@ -28,9 +28,17 @@ Differences from the JAX version, none of which changes the math:
   another, so rows dropped into one spare row, as JAX's mode="drop"
   does, would make one serial chain of most of the rows).
 
-Not ported: the observation-row sharding (``axis_name``, ROADMAP A12). The
-JAX package's staged ``local_ba_round1``/``round2`` are not needed: the
-async mapper runs both rounds on its worker thread.
+Sharded (``mesh``, a :class:`vslam_torch.parallel.mesh.Mesh`; JAX's
+``axis_name`` inside ``shard_map``): one controller drives every shard.
+Each shard linearizes its own slice of the observation rows on its device
+and scatters full-width landmark blocks from them; the mesh's collectives
+(explicit reductions in vslam_torch/parallel/mesh.py) reduce-scatter those
+into per-shard landmark slabs and sum the pose blocks, the reduced system
+and the error; the landmark steps are gathered. The reduced (6W)^2 solve
+and the LM control run once, on the mesh's first device (replicated in
+JAX, which is the same thing). The JAX package's staged
+``local_ba_round1``/``round2`` are not needed: the async mapper runs both
+rounds on its worker thread.
 """
 
 from __future__ import annotations
@@ -65,13 +73,6 @@ class BAProblem(NamedTuple):
     baseline: torch.Tensor  # ()
     odo_rel: torch.Tensor  # (W-1, 4, 4) measured T_i^-1 T_{i+1}
     odo_valid: torch.Tensor  # (W-1,) bool
-
-
-def _not_ported(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "vslam_torch: the sharded local BA (axis_name, ROADMAP A12) is not ported yet"
-        )
 
 
 # The deterministic-algorithms flag is process-wide, and the async mapper
@@ -198,12 +199,41 @@ def _odometry_residual_and_jacobians(p: BAProblem, with_jac: bool = True):
     return r6[0] * w, Ji * w[..., None], Jj * w[..., None]
 
 
-def ba_error(p: BAProblem, axis_name: str | None = None) -> torch.Tensor:
-    """Total error 0.5 * (||r_obs||^2 + ||r_odo||^2)."""
-    _not_ported(axis_name)
-    r, _, _ = _obs_residual_and_jacobians(p, with_jac=False)
+def _shards(p: BAProblem, mesh) -> list:
+    """(global shard index, problem) per shard of this process: its slice
+    of the observation rows (vslam_tpu/ops/schur.py:138-158), every tensor
+    on the shard's device. The rows must divide evenly over the mesh."""
+    O = p.obs_kf.shape[0]
+    if O % mesh.size:
+        raise ValueError(f"mesh size {mesh.size} must divide the {O} observation rows")
+    n = O // mesh.size
+    out = []
+    for g, dev in mesh.local:
+        rows = slice(g * n, (g + 1) * n)
+        q = p._replace(
+            obs_kf=p.obs_kf[rows], obs_lm=p.obs_lm[rows], obs_uv=p.obs_uv[rows],
+            obs_stereo=p.obs_stereo[rows], obs_right=p.obs_right[rows],
+            obs_w=p.obs_w[rows], obs_valid=p.obs_valid[rows],
+        )
+        out.append((g, BAProblem(*(t.to(dev) for t in q))))
+    return out
+
+
+def ba_error(p: BAProblem, mesh=None) -> torch.Tensor:
+    """Total error 0.5 * (||r_obs||^2 + ||r_odo||^2); with a `mesh`, each
+    shard sums its observation rows and one psum adds them (the LM's
+    accept/reject then runs on the summed error)."""
+    if mesh is None:
+        r, _, _ = _obs_residual_and_jacobians(p, with_jac=False)
+        err = torch.sum(r * r)
+    else:
+        parts = []
+        for _, q in _shards(p, mesh):
+            r, _, _ = _obs_residual_and_jacobians(q, with_jac=False)
+            parts.append(torch.sum(r * r))
+        err = mesh.psum(parts)
     ro, _, _ = _odometry_residual_and_jacobians(p, with_jac=False)
-    return 0.5 * (torch.sum(r * r) + torch.sum(ro * ro))
+    return 0.5 * (err + torch.sum(ro * ro))
 
 
 def _landmark_rows(r, Jp, Jl):
@@ -280,16 +310,23 @@ def _add_odometry(p: BAProblem, Hpp, gp, free):
     return Hpp, gp
 
 
-def _pose_system(p: BAProblem, r, Jp, free):
-    """Pose blocks Hpp (W,W,6,6) and gp (W,6), odometry chain included.
-    Observations touch only the diagonal blocks."""
+def _pose_rows(p: BAProblem, r, Jp):
+    """The observation rows' share of the pose blocks: the diagonal blocks
+    (W, 6, 6) (an observation touches only its own pose) and gp (W, 6)."""
     W = p.poses.shape[0]
     z = dict(dtype=r.dtype, device=r.device)
     diag = _scatter_add(torch.zeros((W, 6, 6), **z), (p.obs_kf,), torch.einsum("oik,oil->okl", Jp, Jp))
-    Hpp = torch.zeros((W, W, 6, 6), **z)
-    a = torch.arange(W, device=r.device)
-    Hpp[a, a] = diag
     gp = _scatter_add(torch.zeros((W, 6), **z), (p.obs_kf,), torch.einsum("oik,oi->ok", Jp, r))
+    return diag, gp
+
+
+def _pose_system(p: BAProblem, diag, gp, free):
+    """Pose blocks Hpp (W,W,6,6) and gp (W,6) from the observation rows'
+    share, the odometry chain added once."""
+    W = p.poses.shape[0]
+    Hpp = torch.zeros((W, W, 6, 6), dtype=diag.dtype, device=diag.device)
+    a = torch.arange(W, device=diag.device)
+    Hpp[a, a] = diag
     return _add_odometry(p, Hpp, gp, free)
 
 
@@ -299,13 +336,12 @@ def _linearize(p: BAProblem):
     free = (~p.fixed) & p.pose_valid
     r, Jp, Jl = _obs_residual_and_jacobians(p)
     Jp = Jp * free[p.obs_kf][:, None, None]
-    Hpp, gp = _pose_system(p, r, Jp, free)
+    Hpp, gp = _pose_system(p, *_pose_rows(p, r, Jp), free)
     return Hpp, gp, _landmark_rows(r, Jp, Jl)
 
 
-def _assemble(p: BAProblem, axis_name: str | None = None):
+def _assemble(p: BAProblem):
     """The blocked normal equations (Hpp, Hll, Hpl, gp, gl)."""
-    _not_ported(axis_name)
     Hpp, gp, rows = _linearize(p)
     Hll, Hpl, gl = _slab_system(p, rows, _slabs(p, 1)[0])
     return Hpp, Hll, Hpl, gp, gl
@@ -409,30 +445,102 @@ def _schur_step(p: BAProblem, lam, slabs: list):
     return delta_p, delta_l
 
 
+def _schur_step_sharded(p: BAProblem, lam, mesh, shards: list, shard_slabs: list):
+    """One damped Schur step over a mesh, in `n_slabs` global landmark
+    slabs (1: the plain sharded path, vslam_tpu/ops/schur.py:232-283,
+    350-388; more: the composition run_global takes at map scale,
+    :438-511). Each shard linearizes its rows and sums its share of the pose
+    blocks (one psum; the odometry chain added once after it). Per slab,
+    each shard scatters (W, L / n_slabs, 6, 3) partial blocks from its rows
+    and a psum_scatter lands on shard g the fully summed sub-slab g of
+    L / (n_slabs * mesh size) landmarks, where its share of the reduction
+    runs. One psum adds the reduced systems; the (6W)^2 solve runs on the
+    mesh's first device; each shard back-substitutes its sub-slabs and an
+    all_gather assembles the landmark steps."""
+    W, L = p.poses.shape[0], p.pts.shape[0]
+    n_slabs = len(shard_slabs[0])
+    Lslab = L // n_slabs
+    Lsub = Lslab // mesh.size
+    free = (~p.fixed) & p.pose_valid
+    lin, diags, gps = [], [], []
+    for _, q in shards:
+        r, Jp, Jl = _obs_residual_and_jacobians(q)
+        Jp = Jp * free.to(r.device)[q.obs_kf][:, None, None]
+        diag, gp_q = _pose_rows(q, r, Jp)
+        diags.append(diag)
+        gps.append(gp_q)
+        lin.append(_landmark_rows(r, Jp, Jl))
+    Hpp, gp = _pose_system(p, mesh.psum(diags), mesh.psum(gps), free)
+    lams = [lam.to(dev) for _, dev in mesh.local]
+
+    def slab_blocks(i):
+        """Each shard's fully summed sub-slab blocks of global slab i."""
+        parts = [_slab_system(q, rows, sl[i]) for (_, q), rows, sl in zip(shards, lin, shard_slabs)]
+        Hll = mesh.psum_scatter([x[0] for x in parts], 0)
+        Hpl = mesh.psum_scatter([x[1] for x in parts], 1)
+        gl = mesh.psum_scatter([x[2] for x in parts], 0)
+        return list(zip(Hll, Hpl, gl))
+
+    S_parts = b_parts = kept = None
+    for i in range(n_slabs):
+        blocks = slab_blocks(i)
+        red = [_reduce_slab(Hll, Hpl, gl, lm) for (Hll, Hpl, gl), lm in zip(blocks, lams)]
+        S_parts = [x[0] for x in red] if S_parts is None else [a + x[0] for a, x in zip(S_parts, red)]
+        b_parts = [x[1] for x in red] if b_parts is None else [a + x[1] for a, x in zip(b_parts, red)]
+        if n_slabs == 1:  # one slab keeps its blocks for the back-substitution
+            kept = [(x[2], x[3], Hpl, gl) for x, (_, Hpl, gl) in zip(red, blocks)]
+    delta_p = _solve_reduced(p, Hpp, gp, mesh.psum(S_parts), mesh.psum(b_parts), lam)
+    delta_l = torch.empty_like(p.pts)
+    for i in range(n_slabs):
+        per = kept or [
+            (*_damped_inv3(Hll, lm), Hpl, gl) for (Hll, Hpl, gl), lm in zip(slab_blocks(i), lams)
+        ]
+        parts = []
+        for blk, (g, dev) in zip(per, mesh.local):
+            off = i * Lslab + g * Lsub
+            parts.append(_back_substitute(*blk, delta_p.to(dev), p.pt_valid[off : off + Lsub].to(dev)))
+        delta_l[i * Lslab : (i + 1) * Lslab] = mesh.all_gather(parts)
+    return delta_p, delta_l
+
+
 def local_ba(
     p: BAProblem, iters: int = 5, lambda0: float = 1e-4, rel_tol: float = 1e-5,
-    axis_name: str | None = None, n_slabs: int = 1, stats: list | None = None,
+    mesh=None, n_slabs: int = 1, stats: list | None = None,
 ):
     """Up to `iters` LM iterations; returns (problem, final error, final
     lambda). GTSAM accept/reject with relativeErrorTol: done when an
     ACCEPTED step gains <= rel_tol * max(err, 1e-12); lambda x0.1 on
     accept, x10 on reject, clipped to [1e-9, 1e6]. A NaN trial error is a
     rejection. `n_slabs > 1`: the Schur reduction in landmark slabs
-    (global BA at map scale). `stats`, when given, receives the iteration
-    count."""
-    _not_ported(axis_name)
-    err = ba_error(p)
+    (global BA at map scale). `mesh`: sharded over its shards
+    (:func:`_schur_step_sharded`; the mesh size must divide the
+    observation rows, and n_slabs x the mesh size the landmark slots),
+    the accept/reject on the summed error. `stats`, when given, receives
+    the iteration count."""
+    err = ba_error(p, mesh)
     dev = err.device
     lam = torch.tensor(lambda0, dtype=torch.float32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     n_iter = torch.zeros((), dtype=torch.int64, device=dev)
-    slabs = _slabs(p, n_slabs)
+    if mesh is None:
+        slabs = _slabs(p, n_slabs)
+    else:
+        L = p.pts.shape[0]
+        if L % (n_slabs * mesh.size):
+            raise ValueError(
+                f"n_slabs={n_slabs} x mesh size {mesh.size} must divide the {L} landmark slots"
+            )
+        # the rows' slab layout per shard; it holds for the whole round
+        shard_slabs = [_slabs(q, n_slabs) for _, q in _shards(p, mesh)]
     for i in range(iters):
         if i and i % _DONE_CHECK_EVERY == 0 and bool(done):
             break
-        dp, dl = _schur_step(p, lam, slabs)
+        if mesh is None:
+            dp, dl = _schur_step(p, lam, slabs)
+        else:
+            dp, dl = _schur_step_sharded(p, lam, mesh, _shards(p, mesh), shard_slabs)
         p_new = p._replace(poses=se3.retract(p.poses, dp), pts=p.pts + dl)
-        new_err = ba_error(p_new)
+        new_err = ba_error(p_new, mesh)
         active = ~done
         improved = (new_err < err) & active  # False on NaN
         done = done | (improved & (err - new_err <= rel_tol * torch.clamp(err, min=1e-12)))
@@ -451,16 +559,16 @@ def local_ba(
 
 def local_ba_two_rounds(
     p: BAProblem, iters1: int = 5, iters2: int = 10,
-    axis_name: str | None = None, n_slabs: int = 1, stats: list | None = None,
+    mesh=None, n_slabs: int = 1, stats: list | None = None,
 ):
     """The reference's 2-round schedule (src/OptimizationBA.cpp:543-873):
     round 1 LM -> chi-squared outlier sweep -> round 2 LM (lambda restarts)
-    -> final kill mask; `n_slabs` as for :func:`local_ba`. Returns
+    -> final kill mask; `mesh` and `n_slabs` as for :func:`local_ba` (the
+    sweep is per observation, so it needs no collective). Returns
     (problem, error, kill (O,) bool)."""
-    _not_ported(axis_name)
-    p1, _, _ = local_ba(p, iters=iters1, n_slabs=n_slabs, stats=stats)
+    p1, _, _ = local_ba(p, iters=iters1, mesh=mesh, n_slabs=n_slabs, stats=stats)
     p1 = p1._replace(obs_valid=p1.obs_valid & (obs_chi2(p1) < CHI2_THR))
-    p2, err, _ = local_ba(p1, iters=iters2, n_slabs=n_slabs, stats=stats)
+    p2, err, _ = local_ba(p1, iters=iters2, mesh=mesh, n_slabs=n_slabs, stats=stats)
     kill = p2.obs_valid & (obs_chi2(p2) >= CHI2_THR)
     return p2, err, kill
 

@@ -6,7 +6,8 @@ src/VIOSlamMono.cpp:112-275).
         [--limit N] [--out traj.txt] [--async-ba] [--no-prefetch]
         [--checkpoint ck.npz] [--checkpoint-every N] [--resume ck.npz]
         [--viz map.html] [--viz-every N] [--ply map.ply] [--global-ba]
-        [--loop-closure] [--debug-dir DIR] [--debug-every N] [--device cpu]
+        [--loop-closure] [--debug-dir DIR] [--debug-every N] [--shards N]
+        [--device cpu]
 
 Loads the YAML config, enumerates the dataset (KITTI image_0/image_1 or
 EuRoC mav0), bins the IMU samples per frame, runs the frame loop on
@@ -20,8 +21,9 @@ too, on the host in uint8) unless ``--no-prefetch``, or unless the native
 library cannot be built here; then PIL decodes and the facade rectifies on
 the device. A run can be checkpointed at keyframe boundaries and resumed
 (``--checkpoint`` / ``--resume``); a checkpoint of the JAX package resumes
-here too. ``--shards N`` with N > 1 raises NotImplementedError (the
-mesh-sharded BA is not ported).
+here too. ``--shards N`` shards the mapper's bundle adjustments over N
+cards (N virtual shards with ``--device cpu``; ``auto``: every visible
+card).
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--global-ba", action="store_true",
                     help="one bundle adjustment over the whole map before saving")
     ap.add_argument("--shards", default=None,
-                    help="shard the local BA over N devices (not ported: N > 1 raises)")
+                    help="shard the bundle adjustments over N devices ('auto': every card)")
     ap.add_argument("--loop-closure", action="store_true",
                     help="detect and close trajectory loops at keyframes")
     ap.add_argument("--debug-dir", default=None,
