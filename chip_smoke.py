@@ -166,7 +166,21 @@ own line:
    run_global on phase 15's corridor over 2 shards (the composed 8-slab
    path, phase 15's gates), and the facade with LocalMapper(mesh=2
    shards) over phase 8's 12 frames against phase 8's card run (the same
-   keyframes and BA runs, 1e-3 m).
+   keyframes and BA runs, 1e-3 m);
+19. api: the JAX package's last public functions on the card, on phase
+   4's frames (no new render) and phase 7's window: extract.extract on
+   frame 0's left image (one extract_windows launch, 0 plain calls,
+   torch.equal to row 0 of extract_batch(img[None]); against the same call
+   on the CPU the keypoints and responses exact, angles within 1e-4 rad,
+   >= 99% of the descriptors identical and none more than 2 bits off);
+   orb.orientations and orb.brief_descriptors on the blurred levels of
+   pyramid.build_pyramid against orientation_from_patches /
+   brief_from_patches of the kernel's windows, for the keys at least 15
+   px inside their level (the same rules); schur.local_ba_round1 then
+   local_ba_round2 against local_ba_two_rounds (pose log within 1e-6, the
+   same kills; bit-identical printed); metrics.trace around frame 1 of
+   the sync tracker (the trace's bytes, its CUDA kernel events and its
+   extract_windows events, >= 1); the phase's wall.
 
 Frames are rendered on the host by 8 processes forked at start-up,
 before CUDA is initialized, and stopped at the end. The CPU sides of the
@@ -199,9 +213,9 @@ from vslam_torch import kernels, native, run_batch, run_dataset, run_synthetic
 from vslam_torch.geometry import se3, triangulate
 from vslam_torch.kernels import timing
 from vslam_torch.models import local_mapper, loop_closure, map_state, pose_graph, reloc, system, tracker
-from vslam_torch.ops import extract, imu, lm, patches, pyramid, schur
+from vslam_torch.ops import extract, imu, lm, orb, patches, pyramid, schur
 from vslam_torch.parallel import mesh as par_mesh, multi_seq, sharded_ba
-from vslam_torch.utils import checkpoint as ckpt_io, datasets, synthetic, trajectory
+from vslam_torch.utils import checkpoint as ckpt_io, datasets, metrics, synthetic, trajectory
 from vslam_torch.utils.config import ConfigFile
 
 # the bench configuration (bench.py:341-345) and its scene
@@ -2174,6 +2188,129 @@ def _sharded_mapper(scene, pairs, unsharded):
                              f"BA {sys_.mapper.ba_count} / {ba_ref}, {dt.max()} m")
 
 
+API_ANGLE_TOL = 1e-4  # rad: tests/test_torch_extract.py:283-306's rules for
+API_DESC_SAME, API_DESC_BITS = 0.99, 2  # angles and descriptors
+API_POSE_LOG_TOL = 1e-6
+API_TRACE_FRAME = 1  # the bench frame tracked under metrics.trace
+
+
+def _desc_agreement(a: torch.Tensor, b: torch.Tensor) -> tuple[float, int]:
+    """Share of identical descriptors and the most bits in which two differ."""
+    bits = (a != b).sum(-1)
+    return float((bits == 0).float().mean()), int(bits.max())
+
+
+def _interior_keys(keys: extract.Keys, levels: list) -> list:
+    """Per pyramid level: the integer level coords of the valid keys at
+    least 15 px inside the level."""
+    out = []
+    for lvl, img in enumerate(levels):
+        h, w = img.shape
+        xy = (keys.xy / 1.2**lvl).round().long()
+        sel = keys.valid & (keys.octave == lvl) & (xy >= PATCH // 2).all(-1)
+        sel &= (xy[:, 0] < w - PATCH // 2) & (xy[:, 1] < h - PATCH // 2)
+        out.append(xy[sel])
+    return out
+
+
+def phase_api(scene, pairs, window: schur.BAProblem) -> dict:
+    """Phase 19: the JAX package's last public functions on the card, on
+    phase 4's frames of the bench scene and phase 7's window."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    kw = dict(n_levels=PARAMS["n_levels"], scale=1.2, total=PARAMS["n_features"])
+    img = torch.from_numpy(pairs[0][0]).to(dev)
+    torch.cuda.synchronize()
+    # 1. single-image extraction: one launch of the kernel, no plain call
+    with _plain_calls() as plain_devices:
+        patches.LAUNCHES = 0
+        keys = extract.extract(img, **kw)
+        torch.cuda.synchronize()
+        launches, plain_calls = patches.LAUNCHES, len(plain_devices)
+    row0 = all(torch.equal(a, b) for a, b in zip(keys, extract.extract_batch(img[None], **kw).select(0)))
+    cpu = extract.extract(img.cpu(), **kw)
+    exact = {n: bool(torch.equal(getattr(keys, n).cpu(), getattr(cpu, n)))
+             for n in ("xy", "octave", "valid", "response")}
+    valid = cpu.valid
+    ang_err = float((keys.angle.cpu() - cpu.angle)[valid].abs().max())
+    same, bits = _desc_agreement(keys.desc.cpu()[valid], cpu.desc[valid])
+    say("api_extract", shape=f"{WIDTH}x{HEIGHT}", keys=int(valid.sum()), extract_windows_launches=launches,
+        plain_calls_on_card=plain_calls, equals_extract_batch_row0=row0, card_vs_cpu_exact=exact,
+        card_vs_cpu_max_angle_err=ang_err, card_vs_cpu_desc_identical=same, card_vs_cpu_desc_max_bits=bits)
+    if launches != 1 or plain_calls or not row0 or not all(exact.values()):
+        raise AssertionError(f"extract: {launches} launches, {plain_calls} plain calls, row 0 {row0}, {exact}")
+    if ang_err > API_ANGLE_TOL or same < API_DESC_SAME or bits > API_DESC_BITS:
+        raise AssertionError(f"extract card vs CPU: angles {ang_err} rad, {same} identical, {bits} bits")
+
+    # 2. the image-space ORB against the kernel's windows, keys >= 15 px inside
+    levels = [pyramid.gaussian_blur(a) for a in pyramid.build_pyramid(img, kw["n_levels"], kw["scale"])]
+    inner = _interior_keys(keys, levels)
+    counts = [len(xy) for xy in inner]
+    corner = torch.cat(inner).sub(PATCH // 2).to(torch.int32)[None]
+    windows = patches.extract_windows_levels([a[None] for a in levels], counts, corner[..., 0].contiguous(),
+                                             corner[..., 1].contiguous(), PATCH, PATCH)[0]
+    ang_w = orb.orientation_from_patches(windows)
+    desc_w = orb.brief_from_patches(windows, ang_w)[1]
+    ang_i = torch.cat([orb.orientations(a, xy) for a, xy in zip(levels, inner)])
+    desc_i = torch.cat([orb.brief_descriptors(a, xy, ang)[1]
+                        for a, xy, ang in zip(levels, inner, torch.split(ang_i, counts))])
+    orb_ang_err = float((ang_i - ang_w).abs().max())
+    orb_same, orb_bits = _desc_agreement(desc_i, desc_w)
+    say("api_orb", keys=sum(counts), per_level=counts, max_angle_err_rad=orb_ang_err,
+        desc_identical=orb_same, desc_max_bits=orb_bits)
+    if orb_ang_err > API_ANGLE_TOL or orb_same < API_DESC_SAME or orb_bits > API_DESC_BITS:
+        raise AssertionError(f"image-space ORB: {orb_ang_err} rad, {orb_same} identical, {orb_bits} bits")
+
+    # 3. the split BA rounds against the fused two rounds on phase 7's window
+    t0 = time.perf_counter()
+    fused = _solve(window)
+    t1 = time.perf_counter()
+    p1 = schur.local_ba_round1(window)
+    split = schur.local_ba_round2(p1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log = float(se3.se3_logmap(se3.inverse(fused[0].poses) @ split[0].poses)[window.pose_valid].abs().max())
+    same_kill = bool(torch.equal(fused[2], split[2]))
+    bits_equal = all(torch.equal(a, b) for a, b in zip(
+        (fused[0].poses, fused[0].pts, fused[0].obs_valid, fused[1], fused[2]),
+        (split[0].poses, split[0].pts, split[0].obs_valid, split[1], split[2])))
+    say("api_ba_rounds", poses=int(window.pose_valid.sum()), landmarks=int(window.pt_valid.sum()),
+        fused_ms=(t1 - t0) * 1e3, split_ms=(t2 - t1) * 1e3, max_pose_log=log, same_kills=same_kill,
+        kills=int(split[2].sum()), swept=int((window.obs_valid & ~p1.obs_valid).sum()),
+        bit_identical=bits_equal)
+    if not log <= API_POSE_LOG_TOL or not same_kill:
+        raise AssertionError(f"split BA rounds: pose log {log}, same kills {same_kill}")
+
+    # 4. metrics.trace around one tracked frame of the sync tracker
+    world = map_state.WorldMap(**WORLD, device=dev)
+    trk = tracker.StereoTracker(scene.K.astype(np.float32), scene.baseline, WIDTH, HEIGHT, world,
+                                tracker.TrackerParams(**PARAMS), device=dev)
+    frames = [torch.from_numpy(p).to(dev) for p in pairs[: API_TRACE_FRAME + 1]]
+    for fr in frames[:-1]:
+        trk.track(fr)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        patches.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with metrics.trace(tmp) as path:
+            trk.track(frames[-1])
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        traced_launches = patches.LAUNCHES
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    ew_events = sum("extract_windows" in n for n in kernel_names)
+    say("api_trace", frame=API_TRACE_FRAME, trace_file=os.path.basename(path), trace_bytes=trace_bytes,
+        events=len(events), cuda_kernel_events=len(kernel_names), extract_windows_events=ew_events,
+        extract_windows_launches=traced_launches, traced_frame_and_export_s=traced_s)
+    if traced_launches != 1 or ew_events < 1:
+        raise AssertionError(f"trace: {traced_launches} launches, {ew_events} extract_windows events")
+    say("api", wall_s=time.perf_counter() - t_phase)
+    return {"api_extract": launches, "api_traced_frame": traced_launches}
+
+
 def main() -> int:
     global _POOL
     with concurrent.futures.ProcessPoolExecutor(
@@ -2222,6 +2359,7 @@ def run() -> int:
     launches_ds_kitti, launches_ds_euroc = phase_dataset()
     t_batch = _batch_tables(torch.device("cuda"), smi)
     launches_par = phase_parallel(window, sys_scene, sys_pairs, unsharded, par_renders)
+    launches_api = phase_api(scene, pairs, window)
     report = {"kernels": [{
         "name": "extract_windows",
         "route": "cuda",
@@ -2233,7 +2371,7 @@ def run() -> int:
                               "kitti_driver": launches_kitti, "mono_driver": launches_driver_mono,
                               "mono_system": launches_mono, "relocalization": launches_recovery,
                               "loop_circuit": launches_loop, "dataset_kitti": launches_ds_kitti,
-                              "dataset_euroc": launches_ds_euroc, **launches_par},
+                              "dataset_euroc": launches_ds_euroc, **launches_par, **launches_api},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],

@@ -4,7 +4,8 @@ VSlamSystem run on the card against the same runs on the CPU, the local
 BA's bit-reproducibility on the card, the async mapper's worker thread and
 side stream against the sync mapper, a short STEREO_IMU run, a short
 mono-inertial run, relocalization retrieval, the slab-chunked Schur
-reduction, the pose graphs, the split-map loop closure, the batched
+reduction and the split BA rounds, single-image extraction against the
+image-space ORB, the pose graphs, the split-map loop closure, the batched
 frontend's kernel tables and run, and the sharded BA over virtual shards
 on one card. They skip without a card. This file
 imports no jax (the GPU machine has none); run it there with
@@ -18,7 +19,7 @@ import torch
 
 from vslam_torch.geometry import se3
 from vslam_torch.models import map_state, reloc, system, tracker
-from vslam_torch.ops import extract, patches, pyramid, schur
+from vslam_torch.ops import extract, orb, patches, pyramid, schur
 from vslam_torch.utils import synthetic
 from vslam_torch.utils.config import ConfigFile
 
@@ -188,6 +189,31 @@ def test_extract_batch_launches_the_kernel_once(dev):
         assert torch.equal(a, b)
 
 
+def test_extract_launches_the_kernel_once_and_matches_the_image_space_orb(dev):
+    """Single-image extraction: one launch, row 0 of extract_batch; for the
+    keys at least 15 px inside level 0, orientations and brief_descriptors
+    on the blurred level read the kernel's windows' pixels: angles within
+    1e-4 rad, the same descriptors with those angles."""
+    scene = synthetic.make_scene(n_frames=2, n_points=400, width=320, height=240, fps=10.0, seed=7)
+    img = torch.from_numpy(scene.render(1)).to(dev)
+    kw = dict(n_levels=4, scale=1.2, total=512)
+    n0 = patches.LAUNCHES
+    keys = extract.extract(img, **kw)
+    torch.cuda.synchronize()
+    assert patches.LAUNCHES == n0 + 1
+    for a, b in zip(keys, extract.extract_batch(img[None], **kw).select(0)):
+        assert torch.equal(a, b)
+    xy = keys.xy.round().long()
+    sel = keys.valid & (keys.octave == 0) & (xy >= 15).all(-1)
+    sel &= (xy[:, 0] <= 320 - 16) & (xy[:, 1] <= 240 - 16)
+    blurred = pyramid.gaussian_blur(img)
+    assert int(sel.sum()) > 50
+    ang = orb.orientations(blurred, xy[sel])
+    assert float((ang - keys.angle[sel]).abs().max()) <= 1e-4
+    packed, signed = orb.brief_descriptors(blurred, xy[sel], keys.angle[sel])
+    assert torch.equal(packed, keys.packed[sel]) and torch.equal(signed, keys.desc[sel])
+
+
 def test_tracker_on_card_matches_cpu(dev):
     """Five frames of the small tracker scene on the card and on the CPU
     (plain versions): the same keyframes, poses within 1e-4 m."""
@@ -251,6 +277,17 @@ def test_local_ba_on_card_is_bit_reproducible(dev):
     blocks are summed by a sorted segment sum, not by float atomics."""
     p = _on(_ba_problem(), dev)
     a = schur.local_ba_two_rounds(p)
+    b = schur.local_ba_two_rounds(p)
+    for x, y in zip((a[0].poses, a[0].pts, a[0].obs_valid, a[1], a[2]),
+                    (b[0].poses, b[0].pts, b[0].obs_valid, b[1], b[2])):
+        assert torch.equal(x, y)
+
+
+def test_split_ba_rounds_on_card_equal_two_rounds(dev):
+    """local_ba_round1 then local_ba_round2 on the card: the same bits as
+    local_ba_two_rounds."""
+    p = _on(_ba_problem(), dev)
+    a = schur.local_ba_round2(schur.local_ba_round1(p))
     b = schur.local_ba_two_rounds(p)
     for x, y in zip((a[0].poses, a[0].pts, a[0].obs_valid, a[1], a[2]),
                     (b[0].poses, b[0].pts, b[0].obs_valid, b[1], b[2])):

@@ -230,3 +230,27 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     idx = case[..., None, None].expand(case.shape + (1, 4))
     q = torch.gather(cands, -2, idx)[..., 0, :]
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def parallax_angle_deg(T_a: torch.Tensor, T_b: torch.Tensor) -> torch.Tensor:
+    """Angle between the two camera optical axes (the z-columns of the
+    rotations), in degrees (reference include/Conversions.h:92-110)."""
+    za = T_a[..., :3, 2]
+    zb = T_b[..., :3, 2]
+    cos = torch.sum(za * zb, dim=-1) / (
+        torch.linalg.norm(za, dim=-1) * torch.linalg.norm(zb, dim=-1) + _EPS
+    )
+    return torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0, 1.0)))
+
+
+def sufficient_movement(
+    T_a: torch.Tensor,
+    T_b: torch.Tensor,
+    min_baseline: float = 0.1,
+    min_angle_deg: float = 5.0,
+) -> torch.Tensor:
+    """Motion gate of reference include/Conversions.h:112-137: enough
+    translation OR enough rotation between two poses."""
+    baseline = torch.linalg.norm(T_a[..., :3, 3] - T_b[..., :3, 3], dim=-1)
+    ang = parallax_angle_deg(T_a, T_b)
+    return (baseline > min_baseline) | (ang > min_angle_deg)

@@ -116,6 +116,24 @@ def extract_batch(
     )
 
 
+def extract(
+    img: torch.Tensor,
+    n_levels: int = 8,
+    scale: float = 1.2,
+    total: int = 2048,
+    cell: int = 35,
+    edge_margin: int = 19,
+    fast_hi: float = 20.0,
+    fast_lo: float = 7.0,
+) -> Keys:
+    """Single-image extraction on an (H, W) float32 image: :func:`extract_batch`
+    with B=1 (one window-kernel launch on a GPU tensor), every field's row 0."""
+    return extract_batch(
+        img[None], n_levels=n_levels, scale=scale, total=total, cell=cell,
+        edge_margin=edge_margin, fast_hi=fast_hi, fast_lo=fast_lo,
+    ).select(0)
+
+
 def scale_factors(n_levels: int = 8, scale: float = 1.2) -> np.ndarray:
     return np.array([scale**l for l in range(n_levels)], np.float32)
 

@@ -8,6 +8,12 @@ einsum (orb.py:129-158) exists only because a gather scalarizes on a TPU.
 Rounding is half-to-even in both libraries (``torch.round`` /
 ``jnp.round``).
 
+The image-space forms (:func:`gather_patches`, :func:`orientations`,
+:func:`brief_descriptors`) read a level image at keypoints and clamp every
+sampled pixel into it; the extractor's windows
+(``ops/patches.extract_windows_levels``) clamp a window's top-left corner
+instead, so the two agree only for keys at least 15 px inside the image.
+
 Packed descriptors are (..., 8) int64 words holding 32 bits each (the JAX
 package uses uint32; torch has no general uint32 arithmetic).
 """
@@ -70,6 +76,22 @@ def _pattern_f32(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(brief_pattern().astype(np.float32)).to(device)
 
 
+def gather_patches(img: torch.Tensor, xy: torch.Tensor, size: int = PATCH) -> torch.Tensor:
+    """(N, size, size) patches of the (H, W) image centred at integer
+    keypoints xy (N, 2); every pixel is clamped into the image."""
+    H, W = img.shape
+    d = torch.arange(-(size // 2), size // 2 + 1, device=img.device)
+    ys = (xy[:, 1, None].long() + d).clamp(0, H - 1)  # (N, size)
+    xs = (xy[:, 0, None].long() + d).clamp(0, W - 1)
+    return img[ys[:, :, None], xs[:, None, :]]
+
+
+def orientations(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angle (radians) per keypoint over the circular
+    31-px patch of the image (reference src/FeatureExtractor.cpp:315-340)."""
+    return orientation_from_patches(gather_patches(img, xy))
+
+
 def orientation_from_patches(patches: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle atan2(m01, m10) over the circular patch,
     from (..., 31, 31) patches."""
@@ -88,22 +110,24 @@ def _pack_bits(bits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return packed, signed
 
 
-def _rotated_pattern(angle: torch.Tensor):
-    """Rounded in-patch sample coords of both pattern points rotated by each
-    keypoint's angle. Returns four (..., N, 256) int64."""
+def _rotated_offsets(angle: torch.Tensor):
+    """Both pattern points rotated by each keypoint's angle and rounded to
+    whole pixels, relative to the keypoint. Returns four (..., N, 256) int64."""
     pat = _pattern_f32(angle.device)
     ca = torch.cos(angle)[..., None]
     sa = torch.sin(angle)[..., None]
     x1, y1, x2, y2 = pat[:, 0], pat[:, 1], pat[:, 2], pat[:, 3]
 
     def rot(px, py):
-        rx = torch.round(px * ca - py * sa).long()
-        ry = torch.round(px * sa + py * ca).long()
-        return rx.add(HALF).clamp(0, PATCH - 1), ry.add(HALF).clamp(0, PATCH - 1)
+        return torch.round(px * ca - py * sa).long(), torch.round(px * sa + py * ca).long()
 
-    r1x, r1y = rot(x1, y1)
-    r2x, r2y = rot(x2, y2)
-    return r1x, r1y, r2x, r2y
+    return (*rot(x1, y1), *rot(x2, y2))
+
+
+def _rotated_pattern(angle: torch.Tensor):
+    """Rounded in-patch sample coords of both pattern points rotated by each
+    keypoint's angle. Returns four (..., N, 256) int64."""
+    return tuple(r.add(HALF).clamp(0, PATCH - 1) for r in _rotated_offsets(angle))
 
 
 def brief_from_patches(
@@ -115,4 +139,33 @@ def brief_from_patches(
     flat = patches.reshape(*patches.shape[:-2], PATCH * PATCH)
     i1 = torch.gather(flat, -1, r1y * PATCH + r1x)
     i2 = torch.gather(flat, -1, r2y * PATCH + r2x)
+    return _pack_bits((i1 < i2).long())
+
+
+def brief_from_patches_gather(
+    patches: torch.Tensor, angle: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Oracle for :func:`brief_from_patches` (the same bits), indexing each
+    patch by (row, column) rather than gathering its flattened pixels."""
+    r1x, r1y, r2x, r2y = _rotated_pattern(angle)
+    lead = torch.meshgrid(*(torch.arange(n, device=patches.device) for n in angle.shape), indexing="ij")
+    lead = tuple(i[..., None] for i in lead)  # broadcast over the 256 pairs
+    i1 = patches[(*lead, r1y, r1x)]
+    i2 = patches[(*lead, r2y, r2x)]
+    return _pack_bits((i1 < i2).long())
+
+
+def brief_descriptors(
+    blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotated-BRIEF bits read straight from the blurred (H, W) level image:
+    offsets rotated by the keypoint angle, rounded to whole pixels, each
+    sample clamped into the image; bit = I(p + o1) < I(p + o2) (reference
+    src/FeatureExtractor.cpp:268-313). xy: (N, 2) integer level coords;
+    angle: (N,) radians. Returns (packed (N, 8) int64, signed (N, 256) int8)."""
+    H, W = blurred.shape
+    r1x, r1y, r2x, r2y = _rotated_offsets(angle)
+    x, y = xy[:, 0:1].long(), xy[:, 1:2].long()
+    i1 = blurred[(y + r1y).clamp(0, H - 1), (x + r1x).clamp(0, W - 1)]
+    i2 = blurred[(y + r2y).clamp(0, H - 1), (x + r2x).clamp(0, W - 1)]
     return _pack_bits((i1 < i2).long())

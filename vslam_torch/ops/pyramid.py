@@ -4,7 +4,9 @@ The half-pixel bilinear resize is the reference's explicit formula, not
 ``F.interpolate`` (whose edge clipping differs), and the blur is the same
 separable tap loop in the same tap order with reflect-101 borders (no
 conv2d). Both are elementwise programs, so each level is bit-identical to
-the JAX version. All images are (B, H, W) float32.
+the JAX version. The batched forms take (B, H, W) float32 images; the
+single-image forms (:func:`resize_bilinear`, :func:`build_pyramid`,
+:func:`gaussian_blur`) are their B=1 calls on (H, W).
 """
 
 from __future__ import annotations
@@ -23,6 +25,11 @@ def level_shapes(height: int, width: int, n_levels: int, scale: float):
         inv = 1.0 / (scale**lvl)
         shapes.append((int(round(height * inv)), int(round(width * inv))))
     return shapes
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(H, W) -> (out_h, out_w) bilinear with half-pixel centers."""
+    return resize_bilinear_batch(img[None], out_h, out_w)[0]
 
 
 def resize_bilinear_batch(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -53,6 +60,16 @@ def resize_bilinear_batch(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.T
     return top * (1 - wy)[None, :, None] + bot * wy[None, :, None]
 
 
+def build_pyramid(img: torch.Tensor, n_levels: int = 8, scale: float = 1.2) -> list[torch.Tensor]:
+    """List of n_levels (H_l, W_l) images; level 0 is the input, each level
+    resampled from the previous one (as the reference does)."""
+    H, W = img.shape
+    levels = [img]
+    for h, w in level_shapes(H, W, n_levels, scale)[1:]:
+        levels.append(resize_bilinear(levels[-1], h, w))
+    return levels
+
+
 @functools.lru_cache(maxsize=None)
 def _gaussian_kernel_1d(ksize: int, sigma: float) -> tuple:
     half = ksize // 2
@@ -60,6 +77,12 @@ def _gaussian_kernel_1d(ksize: int, sigma: float) -> tuple:
     k = np.exp(-(x**2) / (2.0 * sigma**2))
     k /= k.sum()
     return tuple(float(v) for v in k.astype(np.float32))
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """(H, W) separable Gaussian, reflect-101 borders (cv::GaussianBlur
+    BORDER_REFLECT_101, applied before BRIEF sampling)."""
+    return gaussian_blur_batch(img[None], ksize, sigma)[0]
 
 
 def gaussian_blur_batch(imgs: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:

@@ -562,15 +562,31 @@ def local_ba_two_rounds(
     mesh=None, n_slabs: int = 1, stats: list | None = None,
 ):
     """The reference's 2-round schedule (src/OptimizationBA.cpp:543-873):
-    round 1 LM -> chi-squared outlier sweep -> round 2 LM (lambda restarts)
-    -> final kill mask; `mesh` and `n_slabs` as for :func:`local_ba` (the
-    sweep is per observation, so it needs no collective). Returns
-    (problem, error, kill (O,) bool)."""
+    :func:`local_ba_round1` then :func:`local_ba_round2`; `mesh` and
+    `n_slabs` as for :func:`local_ba` (the sweep is per observation, so it
+    needs no collective). Returns (problem, error, kill (O,) bool)."""
+    kw = dict(mesh=mesh, n_slabs=n_slabs, stats=stats)
+    return local_ba_round2(local_ba_round1(p, iters1, **kw), iters2, **kw)
+
+
+def local_ba_round1(
+    p: BAProblem, iters1: int = 5, *, mesh=None, n_slabs: int = 1, stats: list | None = None,
+) -> BAProblem:
+    """Round 1 LM, then the chi-squared outlier sweep: the problem with the
+    swept rows out of `obs_valid`. The first half of
+    :func:`local_ba_two_rounds`; lambda starts at lambda0."""
     p1, _, _ = local_ba(p, iters=iters1, mesh=mesh, n_slabs=n_slabs, stats=stats)
-    p1 = p1._replace(obs_valid=p1.obs_valid & (obs_chi2(p1) < CHI2_THR))
+    return p1._replace(obs_valid=p1.obs_valid & (obs_chi2(p1) < CHI2_THR))
+
+
+def local_ba_round2(
+    p1: BAProblem, iters2: int = 10, *, mesh=None, n_slabs: int = 1, stats: list | None = None,
+):
+    """Round 2 LM (lambda restarts at lambda0), then the final kill mask:
+    (problem, error, kill (O,) bool). The second half of
+    :func:`local_ba_two_rounds`."""
     p2, err, _ = local_ba(p1, iters=iters2, mesh=mesh, n_slabs=n_slabs, stats=stats)
-    kill = p2.obs_valid & (obs_chi2(p2) >= CHI2_THR)
-    return p2, err, kill
+    return p2, err, p2.obs_valid & (obs_chi2(p2) >= CHI2_THR)
 
 
 def obs_chi2(p: BAProblem) -> torch.Tensor:

@@ -1,14 +1,21 @@
-"""Stage timer and counters (port of vslam_tpu/utils/metrics.py).
+"""Stage timer, counters, a profiler trace and JSON event lines (port of
+vslam_tpu/utils/metrics.py).
 
-The tracker records per-stage wall time and named counts here. The JAX
-module's ``trace()`` (a ``jax.profiler`` wrapper) has no counterpart yet.
+The tracker records per-stage wall time and named counts here.
+:func:`trace` is the counterpart of the JAX module's ``jax.profiler``
+trace: a ``torch.profiler`` timeline written as a Chrome / Perfetto JSON.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import json
+import os
+import sys
 import time
+
+import torch
 
 
 class StageTimer:
@@ -73,3 +80,28 @@ class Counters:
     def summary(self) -> dict:
         return dict(self._c) | self.rates()
 
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Record the block with ``torch.profiler`` (host ops, and the CUDA
+    kernels and copies whenever the process has a CUDA device) and write
+    the timeline to ``log_dir/trace_<pid>_<ms>.json`` (chrome://tracing or
+    ui.perfetto.dev) when the block ends, also when it raises. Yields that
+    path. Recording changes nothing that is computed."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json")
+    prof = torch.profiler.profile(activities=acts)
+    try:
+        with prof:
+            yield path
+    finally:
+        prof.export_chrome_trace(path)
+
+
+def log_event(event: str, stream=None, **fields):
+    """One JSON line per event: structured logging the reference never had."""
+    rec = {"t": round(time.time(), 3), "event": event} | fields
+    print(json.dumps(rec), file=stream or sys.stdout, flush=True)
