@@ -180,7 +180,15 @@ own line:
    local_ba_round2 against local_ba_two_rounds (pose log within 1e-6, the
    same kills; bit-identical printed); metrics.trace around frame 1 of
    the sync tracker (the trace's bytes, its CUDA kernel events and its
-   extract_windows events, >= 1); the phase's wall.
+   extract_windows events, >= 1); the phase's wall;
+20. bench: vslam_torch.bench's own functions at reduced depth, on the
+   card: run_pipeline on the first 24 of phase 6's frames as uint8 (8 of
+   warm-up; tracking with the staged async local BA), measure_ba_solves
+   with 2 solves, run_mono_pipeline over 24 frames of the lateral scene
+   (8 of warm-up; rendered by the pool): fps, solves/s, ATEs (each <=
+   0.05 m), keyframes, BA runs, one extract_windows launch per tracked
+   frame (24 and 24, the mono bootstrap's views included; none in the
+   solves) and 0 plain calls. The loop circuit is phase 16's.
 
 Frames are rendered on the host by 8 processes forked at start-up,
 before CUDA is initialized, and stopped at the end. The CPU sides of the
@@ -209,7 +217,7 @@ import time
 import numpy as np
 import torch
 
-from vslam_torch import kernels, native, run_batch, run_dataset, run_synthetic
+from vslam_torch import bench, kernels, native, run_batch, run_dataset, run_synthetic
 from vslam_torch.geometry import se3, triangulate
 from vslam_torch.kernels import timing
 from vslam_torch.models import local_mapper, loop_closure, map_state, pose_graph, reloc, system, tracker
@@ -2311,6 +2319,73 @@ def phase_api(scene, pairs, window: schur.BAProblem) -> dict:
     return {"api_extract": launches, "api_traced_frame": traced_launches}
 
 
+# phase 20: vslam_torch.bench's sections at reduced depth. The euroc
+# pipeline takes the first 24 of phase 6's frames (8 of warm-up), as the
+# camera's uint8 feed; mono takes 24 frames, the depth at which phase 12's
+# mono driver passes its gate on the same scene
+BENCH_FRAMES, BENCH_WARMUP, BENCH_SOLVES = 24, 8, 2
+BENCH_MONO_FRAMES, BENCH_MONO_WARMUP = 24, 8
+
+
+@contextlib.contextmanager
+def _bench_renders(scene, pairs):
+    """vslam_torch.bench's renders come from the pool (nothing is written
+    to its cache), and `scene`'s from `pairs`, already rendered."""
+    own = bench._render_frames
+
+    def frames(sc, n, key):
+        views = pairs[:n] if sc is scene and len(pairs) >= n else _render(sc, n)
+        return [v.astype(np.uint8) for v in views]
+
+    bench._render_frames = frames
+    try:
+        yield
+    finally:
+        bench._render_frames = own
+
+
+def phase_bench(scene, pairs) -> dict:
+    """Phase 20: vslam_torch.bench's euroc pipeline, BA solves and mono
+    pipeline on the card at reduced depth, through the module's own
+    functions: ATEs, fps, one extract_windows launch per tracked frame (the
+    mono bootstrap's views included) and no plain call."""
+    t_phase = time.perf_counter()
+    params = tracker.TrackerParams(**PARAMS)
+    with _bench_renders(scene, pairs), _plain_calls() as plain_devices:
+        patches.LAUNCHES = 0
+        fps, ate, trk, mapper = bench.run_pipeline(scene, params, BENCH_FRAMES, BENCH_WARMUP, "unused")
+        launches_euroc = patches.LAUNCHES
+        st = trk.metrics.summary()["track"]
+        say("bench_euroc", frames=BENCH_FRAMES, warmup=BENCH_WARMUP, fps=fps, ate_m=ate,
+            keyframes=trk.world.n_keyframes, landmarks=trk.world.n_landmarks, ba_runs=mapper.ba_count,
+            track_p50_ms=st["p50_ms"], track_p90_ms=st["p90_ms"],
+            extract_windows_launches=launches_euroc, plain_calls_on_card=len(plain_devices))
+        patches.LAUNCHES = 0
+        solves = bench.measure_ba_solves(trk, mapper, n=BENCH_SOLVES)
+        launches_solves = patches.LAUNCHES
+        say("bench_ba_solves", n=BENCH_SOLVES, solves_per_s=solves, extract_windows_launches=launches_solves)
+        patches.LAUNCHES = 0
+        fps_m, ate_m, mono = bench.run_mono_pipeline(BENCH_MONO_FRAMES, BENCH_MONO_WARMUP)
+        launches_mono = patches.LAUNCHES
+        plain = len(plain_devices)
+    init_frame = int(mono.world.kf_frame_idx[mono.bootstrap_slots[-1]]) if mono.initialized else None
+    want_mono = (len(mono.bootstrap_slots) + BENCH_MONO_FRAMES - 1 - init_frame
+                 if mono.initialized else None)
+    say("bench_mono", frames=BENCH_MONO_FRAMES, warmup=BENCH_MONO_WARMUP, fps=fps_m, ate_m=ate_m,
+        initialized=mono.initialized, bootstrap_views=len(mono.bootstrap_slots), init_frame=init_frame,
+        keyframes=len(mono.new_kf_slots), landmarks=mono.world.n_landmarks,
+        extract_windows_launches=launches_mono, want_launches=want_mono, plain_calls_on_card=plain)
+    say("bench", wall_s=time.perf_counter() - t_phase)
+    if launches_euroc != BENCH_FRAMES or launches_solves or launches_mono != want_mono or plain:
+        raise AssertionError(f"bench: launches {launches_euroc} / {launches_solves} / {launches_mono} "
+                             f"(want {BENCH_FRAMES} / 0 / {want_mono}), {plain} plain calls")
+    if not (ate <= ATE_GATE_M and ate_m <= ATE_GATE_M):
+        raise AssertionError(f"bench: euroc ATE {ate} m, mono ATE {ate_m} m > {ATE_GATE_M} m")
+    if not all(np.isfinite(v) and v > 0 for v in (fps, solves, fps_m)):
+        raise AssertionError(f"bench: fps {fps}, solves/s {solves}, mono fps {fps_m}")
+    return {"bench_euroc": launches_euroc, "bench_mono": launches_mono}
+
+
 def main() -> int:
     global _POOL
     with concurrent.futures.ProcessPoolExecutor(
@@ -2360,6 +2435,7 @@ def run() -> int:
     t_batch = _batch_tables(torch.device("cuda"), smi)
     launches_par = phase_parallel(window, sys_scene, sys_pairs, unsharded, par_renders)
     launches_api = phase_api(scene, pairs, window)
+    launches_bench = phase_bench(sys_scene, sys_pairs)
     report = {"kernels": [{
         "name": "extract_windows",
         "route": "cuda",
@@ -2371,7 +2447,8 @@ def run() -> int:
                               "kitti_driver": launches_kitti, "mono_driver": launches_driver_mono,
                               "mono_system": launches_mono, "relocalization": launches_recovery,
                               "loop_circuit": launches_loop, "dataset_kitti": launches_ds_kitti,
-                              "dataset_euroc": launches_ds_euroc, **launches_par, **launches_api},
+                              "dataset_euroc": launches_ds_euroc, **launches_par, **launches_api,
+                              **launches_bench},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],

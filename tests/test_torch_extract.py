@@ -13,7 +13,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from vslam_torch.ops import extract as text, fast as tfast, orb as torb, patches as tpatch, pyramid as tpyr
+from vslam_torch.ops import stereo_match as tsm
 from vslam_tpu.ops import extract as jext, fast as jfast, orb as jorb, patches as jpatch
+from vslam_tpu.ops import stereo_match as jsm
 from vslam_tpu.utils import synthetic
 
 torch.set_num_threads(2)  # xdist runs several workers on one box
@@ -224,9 +226,10 @@ def test_extract_batch_one_window_call_matches_per_level_reference(monkeypatch):
     np.testing.assert_array_equal(keys.desc.numpy(), signed.numpy())
 
 
-def _frames(width, height, n_points=300, seed=7):
+def _frames(width, height, n_points=300, seed=7, texture="classic"):
     scene = synthetic.make_scene(
-        n_frames=2, n_points=n_points, width=width, height=height, fps=10.0, seed=seed
+        n_frames=2, n_points=n_points, width=width, height=height, fps=10.0, seed=seed,
+        texture=texture,
     )
     return np.stack([scene.render(1), scene.render(1, right=True)])
 
@@ -280,15 +283,47 @@ def test_level_quotas_and_scales_match():
     )
 
 
-def test_extract_batch_matches_jax_on_rendered_frames():
-    """The whole multi-level extraction on a rendered stereo pair (the
-    tracker test scene: 320x240, 512 features, 4 levels). Keypoints
-    (xy, octave, valid, response) are exact. Angles agree to 1e-4 rad (see
-    test_orb_pattern_orientation_and_brief); a descriptor can differ only
-    where a rotated sample lands within ~1e-3 px of a rounding boundary,
-    so at least 99% of valid keys carry identical descriptors and the rest
-    differ in at most 2 bits."""
-    imgs = _frames(320, 240, n_points=400)
+# rad: the port's angles against a float64 computation of the same moments
+# (measured up to 1.6e-5 rad on these three textures; JAX's sit up to
+# 2.3e-4 rad away on the natural one, so they are held to the oracle, not
+# to JAX)
+ANGLE_F64_TOL = 5e-5
+
+
+def _float64_angles(imgs, keys, n_levels, scale):
+    """Per view, the valid keys at least 15 px inside their pyramid level
+    (where the image-space orb.orientations reads the same window as the
+    kernel) and their angles from orb.orientations on the blurred level
+    cast to float64."""
+    out = []
+    for b in range(imgs.shape[0]):
+        levels = [tpyr.gaussian_blur(a) for a in tpyr.build_pyramid(torch.from_numpy(imgs[b]), n_levels, scale)]
+        sel = torch.zeros_like(keys.valid[b])
+        ang = torch.zeros(sel.shape, dtype=torch.float64)
+        for lvl, img in enumerate(levels):
+            h, w = img.shape
+            xy = (keys.xy[b] / scale**lvl).round().long()
+            s = keys.valid[b] & (keys.octave[b] == lvl) & (xy >= torb.PATCH // 2).all(-1)
+            s &= (xy[:, 0] < w - torb.PATCH // 2) & (xy[:, 1] < h - torb.PATCH // 2)
+            ang[s] = torb.orientations(img.double(), xy[s])
+            sel |= s
+        out.append((sel.numpy(), ang.numpy()))
+    return out
+
+
+@pytest.mark.parametrize("texture", ["classic", "natural", "repeated"])
+def test_extract_batch_matches_jax_on_rendered_frames(texture):
+    """The whole multi-level extraction and the stereo match on a rendered
+    stereo pair (the tracker test scene: 320x240, 512 features, 4 levels)
+    of each of synthetic.make_scene's textures. Keypoints (xy, octave,
+    valid, response) and the stereo idx_r are exact. Angles are within
+    ANGLE_F64_TOL of a float64 oracle for the keys 15 px inside their level
+    (all of them here: the edge margin is 19), and on the classic texture
+    within 1e-4 rad of JAX's (see test_orb_pattern_orientation_and_brief);
+    a descriptor can differ only where a rotated sample lands within ~1e-3
+    px of a rounding boundary, so at least 99% of valid keys carry
+    identical descriptors and the rest differ in at most 2 bits."""
+    imgs = _frames(320, 240, n_points=400, texture=texture)
     kw = dict(n_levels=4, scale=1.2, total=512, edge_margin=19, fast_hi=20.0, fast_lo=7.0)
     t = text.extract_batch(torch.from_numpy(imgs), **kw)
     j = jext.extract_batch(jnp.asarray(imgs), **kw)
@@ -296,7 +331,14 @@ def test_extract_batch_matches_jax_on_rendered_frames():
         np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)), err_msg=name)
     valid = t.valid.numpy()
     assert valid.sum() > 500
-    np.testing.assert_allclose(t.angle.numpy()[valid], np.asarray(j.angle)[valid], atol=1e-4, rtol=0)
+    if texture == "classic":
+        np.testing.assert_allclose(t.angle.numpy()[valid], np.asarray(j.angle)[valid], atol=1e-4, rtol=0)
+    n_inside = 0
+    for b, (sel, ang64) in enumerate(_float64_angles(imgs, t, kw["n_levels"], kw["scale"])):
+        err = np.abs(np.angle(np.exp(1j * (t.angle[b].numpy().astype(np.float64) - ang64))))[sel]
+        assert err.max() <= ANGLE_F64_TOL, (b, err.max())
+        n_inside += int(sel.sum())
+    assert n_inside == valid.sum()
     dbits = (t.desc.numpy() != np.asarray(j.desc)).sum(axis=-1)[valid]
     assert (dbits == 0).mean() >= 0.99, np.bincount(dbits)
     assert dbits.max() <= 2, np.bincount(dbits)
@@ -304,3 +346,15 @@ def test_extract_batch_matches_jax_on_rendered_frames():
     np.testing.assert_array_equal(
         t.packed.numpy()[valid][same], np.asarray(j.packed).astype(np.int64)[valid][same]
     )
+    # the stereo match of each package on its own keys
+    sf = jext.scale_factors(kw["n_levels"], kw["scale"])
+    fx, bl = np.float32(460.0), np.float32(0.12)  # synthetic.make_scene's rig
+    views = [[getattr(t, n)[i] for n in ("xy", "octave", "desc", "valid")] for i in (0, 1)]
+    st_t = tsm.match_stereo(torch.from_numpy(imgs[0]), torch.from_numpy(imgs[1]), *views[0], *views[1],
+                            torch.tensor(fx), torch.tensor(bl), torch.from_numpy(sf))
+    views = [[getattr(j, n)[i] for n in ("xy", "octave", "desc", "valid")] for i in (0, 1)]
+    st_j = jsm.match_stereo(jnp.asarray(imgs[0]), jnp.asarray(imgs[1]), *views[0], *views[1],
+                            jnp.float32(fx), jnp.float32(bl), jnp.asarray(sf))
+    assert np.asarray(st_j["matched"]).sum() > 100
+    for name in ("idx_r", "matched"):
+        np.testing.assert_array_equal(st_t[name].numpy(), np.asarray(st_j[name]), err_msg=name)

@@ -231,9 +231,10 @@ def test_port_scene_and_ate_equal_the_jax_package(kw):
 
 
 def test_port_loads_nothing_of_the_jax_package():
-    """Every module of vslam_torch, plus chip_smoke.py's imports, in a fresh
-    interpreter: no module named vslam_tpu* is loaded and no loaded
-    module's file lies under vslam_tpu/."""
+    """Every module of vslam_torch (vslam_torch.bench among them), plus
+    chip_smoke.py's imports, in a fresh interpreter: no module named
+    vslam_tpu* is loaded, no loaded module's file lies under vslam_tpu/,
+    and the root bench.py is not loaded."""
     code = textwrap.dedent(
         """
         import ast, importlib, pathlib, pkgutil, sys
@@ -260,6 +261,8 @@ def test_port_loads_nothing_of_the_jax_package():
         ]
         assert not by_name and not by_file, (by_name, by_file)
         assert "chip_smoke" not in sys.modules
+        assert "vslam_torch.bench" in sys.modules
+        assert "bench" not in sys.modules  # the JAX package's bench.py at the root
         print("NO_VSLAM_TPU_OK", len([m for m in sys.modules if m.startswith("vslam_torch")]))
         """
     )
