@@ -188,7 +188,20 @@ own line:
    (8 of warm-up; rendered by the pool): fps, solves/s, ATEs (each <=
    0.05 m), keyframes, BA runs, one extract_windows launch per tracked
    frame (24 and 24, the mono bootstrap's views included; none in the
-   solves) and 0 plain calls. The loop circuit is phase 16's.
+   solves) and 0 plain calls. The loop circuit is phase 16's;
+21. tools, run right after phase 5, before any mapper (once the async
+   mapper has run in a process, torch.profiler can lose the kernels of a
+   short call): vslam_torch.tools' profile_rtt, profile_solver and
+   roofline on the card with 2 repetitions per timing, the roofline on its
+   own scene (the bench's at 12 frames; phase 4's 16-frame scene has
+   another landmark slab), rendered by the pool during phase 5: every
+   roofline row timed (device ms > 0) and at most 100% of its bound, the
+   one-launch patch row a single extract_windows launch, the warm-up one
+   launch per tracked frame (8), no plain call; frame 9's extract_batch
+   and stereo_match on the card against the same stages on the CPU (a
+   pool process): keys, octaves, masks, responses, idx_r and matched
+   exact, angles and descriptors by phase 19's rules, disparity within
+   1e-3 px and depth within 1e-3 relative; the phase's wall.
 
 Frames are rendered on the host by 8 processes forked at start-up,
 before CUDA is initialized, and stopped at the end. The CPU sides of the
@@ -223,6 +236,7 @@ from vslam_torch.kernels import timing
 from vslam_torch.models import local_mapper, loop_closure, map_state, pose_graph, reloc, system, tracker
 from vslam_torch.ops import extract, imu, lm, orb, patches, pyramid, schur
 from vslam_torch.parallel import mesh as par_mesh, multi_seq, sharded_ba
+from vslam_torch.tools import _common as tool_common, profile_rtt, profile_solver, roofline
 from vslam_torch.utils import checkpoint as ckpt_io, datasets, metrics, synthetic, trajectory
 from vslam_torch.utils.config import ConfigFile
 
@@ -727,34 +741,6 @@ def _solve(p: schur.BAProblem, stats=None):
     return out
 
 
-def _profile_counts(fn, top: int = 0) -> dict:
-    """Kernel launches, stream syncs and memcpy calls of one call of fn()
-    (which must end with a synchronize), from the profiler's runtime-API
-    events; the device busy time is the sum of the kernels' own times, the
-    wall time is taken with the profiler on; `top`: the kernels with the
-    most device time."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    counts = {e.key: e.count for e in events}
-    launch = sum(v for k, v in counts.items() if k in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    sync = sum(v for k, v in counts.items() if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
-    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    out = {"kernel_launches": launch, "stream_syncs": sync,
-           "memcpy_calls": counts.get("cudaMemcpyAsync", 0),
-           "device_busy_ms": busy_us / 1e3, "profiled_wall_ms": wall_ms}
-    if top:
-        dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev.sort(key=lambda e: -getattr(e, "self_device_time_total", 0))
-        out["top_kernels"] = [{"name": e.key[:80], "count": e.count,
-                               "ms": getattr(e, "self_device_time_total", 0) / 1e3} for e in dev[:top]]
-    return out
-
-
 # a landmark's 3x3 block beyond this condition number has no depth that
 # f32 can resolve (the 24 km landmark of phase 7's window, PERF.md)
 LM_COND_MAX = 1e6
@@ -820,7 +806,7 @@ def phase_ba(p: schur.BAProblem, sys_: system.VSlamSystem):
                                                (a[1], b[1]), (a[2], b[2]), (a[0].obs_valid, b[0].obs_valid)))
     if not same:
         raise AssertionError("two solves of one BA problem on the card differ")
-    prof = _profile_counts(lambda: _solve(p))
+    prof = metrics.profile_counts(lambda: _solve(p))
     t0 = time.perf_counter()
     c = _solve(p_cpu)
     ms_cpu = (time.perf_counter() - t0) * 1e3
@@ -866,19 +852,19 @@ def phase_ba(p: schur.BAProblem, sys_: system.VSlamSystem):
         "ba_error": lambda: schur.ba_error(p),
         "obs_chi2": lambda: schur.obs_chi2(p),
     }
-    say("ba_breakdown", **{name: _profile_counts(lambda fn=fn: (fn(), torch.cuda.synchronize()))
+    say("ba_breakdown", **{name: metrics.profile_counts(lambda fn=fn: (fn(), torch.cuda.synchronize()))
                            for name, fn in pieces.items()})
 
     # one whole LocalMapper.run (triangulation, assembly, BA, write-back,
     # host bookkeeping) on phase 6's final map, and the DLT's batched eigh
     # alone at the mapper's shape (1024 candidates, 13 views)
     slot = sys_.tracker.new_kf_slots[-1]
-    run = _profile_counts(lambda: (sys_.mapper.run(slot), torch.cuda.synchronize()))
+    run = metrics.profile_counts(lambda: (sys_.mapper.run(slot), torch.cuda.synchronize()))
     g = torch.Generator(device="cuda").manual_seed(SEED)
     Pv = torch.randn((13, 3, 4), device="cuda", generator=g)
     uv = torch.rand((PARAMS["n_features"], 13, 2), device="cuda", generator=g) * WIDTH
     mask = torch.ones((PARAMS["n_features"], 13), dtype=torch.bool, device="cuda")
-    dlt = _profile_counts(lambda: (triangulate.triangulate_dlt(Pv, uv, mask), torch.cuda.synchronize()))
+    dlt = metrics.profile_counts(lambda: (triangulate.triangulate_dlt(Pv, uv, mask), torch.cuda.synchronize()))
     say("mapper_run", kf_slot=slot, **run, dlt_kernel_launches=dlt["kernel_launches"],
         dlt_stream_syncs=dlt["stream_syncs"] - 1)
     return prof
@@ -1015,7 +1001,7 @@ def phase_imu(scene, pairs, bins, cpu) -> int:
     ate = trajectory.ate_rmse(poses, scene.poses_c2w[:SYS_FRAMES], align=False)
     prof = {}
     for name, (fn, args, kwargs) in last.items():
-        prof[name] = _profile_counts(lambda: (fn(*args, **kwargs), torch.cuda.synchronize()))
+        prof[name] = metrics.profile_counts(lambda: (fn(*args, **kwargs), torch.cuda.synchronize()))
     tracked = SYS_FRAMES - 1
     per_frame = n_calls["motion_only_ba_imu"] / tracked
     trk = sys_.tracker.metrics.summary()
@@ -1210,7 +1196,7 @@ def phase_recovery() -> int:
         t0 = time.perf_counter()
         reloc.retrieve(*args, **kwargs)
         one = {"retrieve_wall_ms": (time.perf_counter() - t0) * 1e3,
-               "retrieve": _profile_counts(lambda: (reloc.retrieve(*args, **kwargs), torch.cuda.synchronize()))}
+               "retrieve": metrics.profile_counts(lambda: (reloc.retrieve(*args, **kwargs), torch.cuda.synchronize()))}
     say("relocalization", frames=len(poses), run_s=run_s, relocalizations=trk.counters.get("relocalizations"),
         retrievals=[{"slot": c[2][0], "votes": c[2][1]} for c in calls], tail_err_m=errs.tolist(),
         n_inliers_last=trk.last_stats["n_inliers"], extract_windows_launches=launches,
@@ -1293,7 +1279,7 @@ def phase_global_ba(sys_, scene):
     wall = time.perf_counter() - t0
     ate1 = trajectory.ate_rmse(sys_.trajectory(), gt, align=False)
     iters = [m.counters.get("lm_iters_round1") - i1, m.counters.get("lm_iters_round2") - i2]
-    prof = _profile_counts(lambda: (m.run_global(), torch.cuda.synchronize()))
+    prof = metrics.profile_counts(lambda: (m.run_global(), torch.cuda.synchronize()))
     say("global_ba", keyframes=len(r["window"]), wall_s=wall, lm_iters=iters, error=r["error"],
         ate_before_m=ate0, ate_after_m=ate1, second_run=prof)
     if not (np.isfinite(r["error"]) and ate1 <= ATE_GATE_M):
@@ -1322,7 +1308,7 @@ def phase_global_ba(sys_, scene):
     new = world.kf_poses_host[:MAP_KF]
     rel_err = lambda ps: _corridor_rel_err(ps, c)
     p, n_slabs = problems[-1]
-    it = _profile_counts(lambda: (schur.local_ba(p, iters=1, n_slabs=n_slabs), torch.cuda.synchronize()),
+    it = metrics.profile_counts(lambda: (schur.local_ba(p, iters=1, n_slabs=n_slabs), torch.cuda.synchronize()),
                          top=8)
     say("global_ba_map_scale", keyframes=MAP_KF, landmarks=MAP_LM, obs=n_obs,
         landmark_slots=int(p.pts.shape[0]), obs_rows=int(p.obs_kf.shape[0]), n_slabs=n_slabs,
@@ -1552,7 +1538,7 @@ def phase_pose_graph():
     # one iteration's launches and syncs: the difference of two profiled
     # calls of 4 and 8 iterations (the chain takes all 25, so neither stops
     # early)
-    p4, p8 = (_profile_counts(lambda k=k: (pose_graph.optimize_chain(*dev_args, iters=k), torch.cuda.synchronize()))
+    p4, p8 = (metrics.profile_counts(lambda k=k: (pose_graph.optimize_chain(*dev_args, iters=k), torch.cuda.synchronize()))
               for k in (4, 8))
     t0 = time.perf_counter()
     pc, _ = pose_graph.optimize_chain(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args), iters=25)
@@ -1897,7 +1883,7 @@ def _step_profile(r: dict) -> dict:
         torch.cuda.synchronize()
 
     step()
-    return _profile_counts(step)
+    return metrics.profile_counts(step)
 
 
 def _summary(r: dict) -> dict:
@@ -2123,7 +2109,7 @@ def _sharded_window(p: schur.BAProblem):
     2 and 4 shards."""
     ref = _solve(p)
     placed = _conditioned(ref[0], p)[0]
-    per_iter = {1: _profile_counts(lambda: (schur.local_ba(p, iters=1), torch.cuda.synchronize()))}
+    per_iter = {1: metrics.profile_counts(lambda: (schur.local_ba(p, iters=1), torch.cuda.synchronize()))}
     for n in PAR_SHARDS:
         m = par_mesh.make_mesh(devices=["cuda:0"] * n)
         step = sharded_ba.sharded_two_rounds(m)
@@ -2139,7 +2125,7 @@ def _sharded_window(p: schur.BAProblem):
         pts_ok = bool(torch.all((d <= 1e-3 + 1e-3 * ref[0].pts.abs())[placed]))
         same_kill = bool(torch.equal(kill, ref[2]))
         derr = abs(float(err) - float(ref[1]))
-        per_iter[n] = _profile_counts(lambda: (schur.local_ba(p, iters=1, mesh=m), torch.cuda.synchronize()))
+        per_iter[n] = metrics.profile_counts(lambda: (schur.local_ba(p, iters=1, mesh=m), torch.cuda.synchronize()))
         say("parallel_sharded_window", shards=n, wall_ms=wall * 1e3, max_pose_log=log,
             max_dpt_conditioned=float(d[placed].max()), landmarks_conditioned=int(placed.sum()),
             max_dpt_other=float(d[p.pt_valid & ~placed].max()) if bool((p.pt_valid & ~placed).any()) else 0.0,
@@ -2386,6 +2372,79 @@ def phase_bench(scene, pairs) -> dict:
     return {"bench_euroc": launches_euroc, "bench_mono": launches_mono}
 
 
+# phase 21: the measuring tools (vslam_torch/tools) with 2 repetitions per
+# timing; the roofline's scene is its own (12 frames: phase 4's 16-frame
+# scene has another landmark slab), rendered by the pool during phase 5
+TOOLS_REPS = 2
+TOOLS_STEREO_TOL = 1e-3  # px and relative depth: phase 5's 1e-3 for floats
+
+
+def _roofline_frame_cpu(pair: np.ndarray, fx: float, baseline: float) -> dict:
+    """The roofline's extract_batch(x2) and stereo_match stages on the CPU
+    (a pool process): their outputs as numpy arrays."""
+    stages = roofline.frame_stages(torch.from_numpy(pair).float(), tracker.TrackerParams(**PARAMS),
+                                   torch.tensor(fx), torch.tensor(baseline))
+    keys = stages["extract_batch(x2)"][0]()
+    return {"keys": {k: v.numpy() for k, v in keys._asdict().items()},
+            "stereo": {k: v.numpy() for k, v in stages["stereo_match"][0]().items()}}
+
+
+def phase_tools(frames_future: list) -> dict:
+    """Phase 21: roofline, profile_rtt and profile_solver on the card, each
+    row timed and below its bound, the one-launch patch row a single
+    extract_windows launch, the warm-up one launch per tracked frame, no
+    plain call; the audited frame's extraction and stereo matching against
+    the same stages on the CPU."""
+    t_phase = time.perf_counter()
+    # the tools without a mapper first
+    rtt = profile_rtt.run()
+    say("tools_rtt", rows=rtt)
+    solver = profile_solver.run(reps=TOOLS_REPS)
+    say("tools_solver", rows=solver)
+    if not all(r["ms_per_call"] > 0 for r in rtt) or not all(r["device_ms"] > 0 for r in solver):
+        raise AssertionError("profile_rtt / profile_solver: a row without a time")
+    frames = [f.astype(np.uint8) for f in _collect(frames_future)]  # the camera's feed, as the tool reads it
+    scene = tool_common.bench_scene(roofline.N_FRAMES)
+    cpu = _cpu_side(_roofline_frame_cpu, frames[roofline.FRAME], float(scene.K[0, 0]), float(scene.baseline))
+    with _plain_calls() as plain_devices:
+        roof = roofline.run(frames=frames, reps=TOOLS_REPS)
+        plain = len(plain_devices)
+    rows = roof["rows"]
+    say("tools_roofline", rows=[{k: r[k] for k in ("stage", "device_ms", "device_method", "dispatch_ms",
+                                                     "blocked_ms", "launches", "syncs", "gflop", "mbytes",
+                                                     "sol_ms", "bound", "share_pct", "extract_windows_launches")}
+                                for r in rows],
+        warmup_frames=roof["warmup_frames"], warmup_extract_windows_launches=roof["warmup_extract_windows_launches"],
+        plain_calls_on_card=plain)
+    (patch,) = [r for r in rows if r["stage"].startswith("patches frame")]
+    bad = [r["stage"] for r in rows if not (r["device_ms"] > 0 and 0 < r["share_pct"] <= 100)]
+    if len(rows) != 8 or bad or patch["extract_windows_launches"] != 1 or plain:
+        raise AssertionError(f"roofline: {len(rows)} rows, untimed or over the bound: {bad}, "
+                             f"{patch['extract_windows_launches']} patch-row launches, {plain} plain calls")
+    if roof["warmup_extract_windows_launches"] != roof["warmup_frames"]:
+        raise AssertionError(f"roofline warm-up: {roof['warmup_extract_windows_launches']} launches over "
+                             f"{roof['warmup_frames']} frames")
+    ref, card = cpu.result(), roof["outputs"]
+    exact = {n: bool(np.array_equal(card["keys"][n], ref["keys"][n])) for n in ("xy", "octave", "valid", "response")}
+    exact.update({n: bool(np.array_equal(card["stereo"][n], ref["stereo"][n])) for n in ("idx_r", "matched")})
+    valid = ref["keys"]["valid"]
+    ang_err = float(np.abs(card["keys"]["angle"] - ref["keys"]["angle"])[valid].max())
+    same, bits = _desc_agreement(*(torch.from_numpy(k["keys"]["desc"][valid]) for k in (card, ref)))
+    m = ref["stereo"]["matched"]
+    disp_err = float(np.abs(card["stereo"]["disparity"] - ref["stereo"]["disparity"])[m].max())
+    depth_ref = ref["stereo"]["depth"][m]
+    depth_err = float((np.abs(card["stereo"]["depth"][m] - depth_ref) / depth_ref).max())
+    say("tools_card_vs_cpu", frame=roofline.FRAME, keys=int(valid.sum()), stereo_matched=int(m.sum()), exact=exact,
+        max_angle_err=ang_err, desc_identical=same, desc_max_bits=bits, max_disparity_err_px=disp_err,
+        max_depth_rel_err=depth_err)
+    if not all(exact.values()) or ang_err > API_ANGLE_TOL or same < API_DESC_SAME or bits > API_DESC_BITS:
+        raise AssertionError(f"roofline frame card vs CPU: {exact}, angles {ang_err}, {same} identical, {bits} bits")
+    if disp_err > TOOLS_STEREO_TOL or depth_err > TOOLS_STEREO_TOL:
+        raise AssertionError(f"roofline stereo card vs CPU: disparity {disp_err} px, depth {depth_err} relative")
+    say("tools", wall_s=time.perf_counter() - t_phase)
+    return {"tools_warmup": roof["warmup_extract_windows_launches"]}
+
+
 def main() -> int:
     global _POOL
     with concurrent.futures.ProcessPoolExecutor(
@@ -2407,7 +2466,11 @@ def run() -> int:
     t_kitti00 = phase_kernels_kitti00(torch.device("cuda"), smi)
     t_mono = phase_kernels_mono(torch.device("cuda"), smi)
     launches_trk, pairs, ate_trk = phase_main_path(scene)
+    tools_frames = _render_async(tool_common.bench_scene(roofline.N_FRAMES), roofline.N_FRAMES)
     phase_card_vs_cpu(scene, pairs)
+    # phase 21 runs here, before any mapper: once the async mapper has run
+    # in a process, torch.profiler can lose the kernels of a short call
+    launches_tools = phase_tools(tools_frames)
     sys_scene = synthetic.make_scene(n_frames=SYS_SCENE_FRAMES, n_points=900, width=WIDTH,
                                      height=HEIGHT, fps=20.0, seed=SEED)
     launches, sys_pairs, window, sys_, sync_fps = phase_system(sys_scene, ate_trk)
@@ -2448,7 +2511,7 @@ def run() -> int:
                               "mono_system": launches_mono, "relocalization": launches_recovery,
                               "loop_circuit": launches_loop, "dataset_kitti": launches_ds_kitti,
                               "dataset_euroc": launches_ds_euroc, **launches_par, **launches_api,
-                              **launches_bench},
+                              **launches_bench, **launches_tools},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],

@@ -100,7 +100,7 @@ def _canned(monkeypatch, fail_in=None):
         return run
 
     monkeypatch.setattr(tbench.torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(tbench, "_card", lambda: {"name": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"})
+    monkeypatch.setattr(tbench, "card", lambda: {"name": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"})
     monkeypatch.setattr(tbench, "run_pipeline", section("pipeline", lambda: (next(fps), 0.006, trk, mapper)))
     monkeypatch.setattr(tbench, "measure_ba_solves", section("ba_solves", 4.0))
     monkeypatch.setattr(tbench, "run_loop_circuit", section("loop", (3, 0.03, 0.031)))

@@ -6,8 +6,9 @@ side stream against the sync mapper, a short STEREO_IMU run, a short
 mono-inertial run, relocalization retrieval, the slab-chunked Schur
 reduction and the split BA rounds, single-image extraction against the
 image-space ORB, the pose graphs, the split-map loop closure, the batched
-frontend's kernel tables and run, and the sharded BA over virtual shards
-on one card. They skip without a card. This file
+frontend's kernel tables and run, the sharded BA over virtual shards
+on one card, and each measuring tool's main (vslam_torch/tools) at a
+small size. They skip without a card. This file
 imports no jax (the GPU machine has none); run it there with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -528,3 +529,62 @@ def test_split_map_closure_on_card_matches_cpu(dev, case):
     assert torch.equal(wg.arrays.obs_lm.cpu(), wc.arrays.obs_lm) and np.array_equal(wg.kf_obs_lm, wc.kf_obs_lm)
     assert torch.equal(wg.arrays.lm_valid.cpu(), wc.arrays.lm_valid)
     np.testing.assert_allclose(wg.kf_poses_host, wc.kf_poses_host, atol=1e-4, rtol=0)
+
+
+TOOL_NAMES = ["ab_kf_policy", "measure_ba_scaling", "profile_bench", "profile_depth", "profile_device",
+              "profile_extract", "profile_frame", "profile_rtt", "profile_solver", "roofline"]
+
+# Each tool runs in a fresh process (a process that has run the async
+# mapper, as earlier tests here do, can lose the kernels of a short
+# profiled call), cut to tests/test_torch_tools.py's size: 320x240, 512
+# features, 4 levels; short runs, two keyframe variants, an eighth of the
+# BA windows' landmarks.
+_TOOL_DRIVER = """
+import importlib, sys
+from vslam_torch.tools import (_common, ab_kf_policy, measure_ba_scaling, profile_bench, profile_depth,
+                               profile_extract, profile_solver)
+
+_common.SCENE = dict(n_points=400, width=320, height=240, fps=10.0, seed=7)
+_common.PARAMS = dict(n_features=512, n_levels=4, active_size=1024)
+for mod, values in ((profile_extract, dict(H=240, W=320, N_LEVELS=4, TOTAL=512)),
+                    (profile_solver, dict(A=1024, N=512)),
+                    (profile_bench, dict(N_FRAMES=16, WARMUP=6)), (profile_depth, dict(N_FRAMES=14, WARMUP=6)),
+                    (ab_kf_policy, dict(N_FRAMES=16, WARMUP=6, VARIANTS=ab_kf_policy.VARIANTS[:2]))):
+    for name, value in values.items():
+        setattr(mod, name, value)
+build = measure_ba_scaling.build_problem
+measure_ba_scaling.build_problem = lambda Wn=20, L=4096, **kw: build(Wn=min(Wn, 20), L=L // 8, **kw)
+name = sys.argv[1]
+if __name__ == "__main__":
+    importlib.import_module("vslam_torch.tools." + name).main(
+        *([["--device", "cuda"]] if name == "measure_ba_scaling" else []))
+"""
+
+
+@pytest.mark.parametrize("name", TOOL_NAMES)
+def test_tool_main_on_card(dev, name):
+    """Each measuring tool's main on the card at a small size, in a fresh
+    process: rc 0 and one JSON line with the card's name and power limit
+    and its rows; the roofline's 8 rows all timed, none above its bound,
+    the one-launch patch row a single extract_windows launch, the warm-up
+    one launch per frame."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _TOOL_DRIVER, name], cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith('{"tool"')][-1])
+    assert line["tool"] == name and line["device"]["name"] and line["device"]["power_limit"]
+    assert line["rows"]
+    if name == "roofline":
+        assert len(line["rows"]) == 8
+        for r in line["rows"]:
+            assert r["device_ms"] > 0 and 0 < r["share_pct"] <= 100, r
+        (patch,) = [r for r in line["rows"] if r["stage"].startswith("patches frame")]
+        assert patch["extract_windows_launches"] == 1 and patch["syncs"] == 0
+        assert line["warmup_extract_windows_launches"] == line["warmup_frames"]

@@ -231,10 +231,11 @@ def test_port_scene_and_ate_equal_the_jax_package(kw):
 
 
 def test_port_loads_nothing_of_the_jax_package():
-    """Every module of vslam_torch (vslam_torch.bench among them), plus
-    chip_smoke.py's imports, in a fresh interpreter: no module named
-    vslam_tpu* is loaded, no loaded module's file lies under vslam_tpu/,
-    and the root bench.py is not loaded."""
+    """Every module of vslam_torch (vslam_torch.bench and every
+    vslam_torch.tools module among them), plus chip_smoke.py's imports, in
+    a fresh interpreter: no module named vslam_tpu* is loaded, no loaded
+    module's file lies under vslam_tpu/ or the JAX repo's tools/, and
+    neither the root bench.py nor any tools.* module is loaded."""
     code = textwrap.dedent(
         """
         import ast, importlib, pathlib, pkgutil, sys
@@ -252,13 +253,16 @@ def test_port_loads_nothing_of_the_jax_package():
                 for a in node.names:
                     if not hasattr(mod, a.name):
                         importlib.import_module(node.module + "." + a.name)
-        jax_pkg = repo / "vslam_tpu"
-        by_name = [m for m in sys.modules if m.split(".")[0].startswith("vslam_tpu")]
+        jax_pkg, jax_tools = repo / "vslam_tpu", repo / "tools"
+        by_name = [m for m in sys.modules if m.split(".")[0] in ("tools",) or m.split(".")[0].startswith("vslam_tpu")]
         by_file = [
             m for m, mod in list(sys.modules.items())
             if getattr(mod, "__file__", None)
-            and pathlib.Path(mod.__file__).resolve().is_relative_to(jax_pkg)
+            and any(pathlib.Path(mod.__file__).resolve().is_relative_to(d) for d in (jax_pkg, jax_tools))
         ]
+        import vslam_torch.tools
+        port_tools = [m.name for m in pkgutil.iter_modules(vslam_torch.tools.__path__)]
+        assert len(port_tools) >= 11 and all("vslam_torch.tools." + t in sys.modules for t in port_tools)
         assert not by_name and not by_file, (by_name, by_file)
         assert "chip_smoke" not in sys.modules
         assert "vslam_torch.bench" in sys.modules

@@ -97,9 +97,11 @@ def _sync(device: torch.device):
 
 
 def run_pipeline(scene, params: tracker.TrackerParams, n_frames: int, warmup: int, cache_key: str,
-                 device="cuda"):
+                 device="cuda", frame_log: list | None = None):
     """Tracking with the staged async local BA (bench.py:65-156); returns
-    (fps, ATE without alignment, tracker, mapper)."""
+    (fps, ATE without alignment, tracker, mapper). `frame_log`, when
+    given, receives per timed frame (frame, wall, consume, track, BA
+    stages, keyframe?) in seconds (vslam_torch.tools.profile_bench)."""
     dev = torch.device(device)
     K = scene.K.astype(np.float32)
     world = map_state.WorldMap(lm_capacity=1 << 15, kf_capacity=128, keys_per_kf=params.n_features,
@@ -137,16 +139,23 @@ def run_pipeline(scene, params: tracker.TrackerParams, n_frames: int, warmup: in
         trk.add_active(r["new_lm_ids"])
 
     def step(f):
+        t0 = time.perf_counter()
         consume_ba(f)
+        t1 = time.perf_counter()
         n_kf = len(trk.new_kf_slots)
         trk.track(frames[f])
+        t2 = time.perf_counter()
         if pending_ba[0] is not None:
             # the next phase of a staged BA, behind this frame's step
             pending_ba[0] = mapper.advance(pending_ba[0])
-        if len(trk.new_kf_slots) > n_kf and trk.new_kf_slots[-1] > 0:
+        is_kf = len(trk.new_kf_slots) > n_kf
+        if is_kf and trk.new_kf_slots[-1] > 0:
             consume_ba(f, force=True)  # at most one BA in flight
             pending_ba[0] = mapper.run_async_staged(trk.new_kf_slots[-1])
             pending_ba[1] = f
+        if frame_log is not None:
+            t3 = time.perf_counter()
+            frame_log.append((f, t3 - t0, t1 - t0, t2 - t1, t3 - t2, is_kf))
 
     for f in range(warmup):
         n_kf = len(trk.new_kf_slots)
@@ -297,7 +306,7 @@ def run_loop_circuit(n_frames: int = 360, device="cuda"):
     return int(sys_.loop_closer.closures), float(ate), float(ate_gba)
 
 
-def _card() -> dict:
+def card() -> dict:
     """The card's name and power limit, as nvidia-smi reports them."""
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -325,7 +334,7 @@ def main() -> int:
     def elapsed():
         return time.perf_counter() - t_start
 
-    card = _card()
+    card_info = card()
     n_frames, warmup = 80, 12
     scene = synthetic.make_scene(
         n_frames=n_frames, n_points=900, width=752, height=480, fps=20.0, seed=3
@@ -395,7 +404,7 @@ def main() -> int:
 
     extra["section_wall_s"] = section_wall
     extra["wall_s"] = elapsed()
-    extra["device"] = card
+    extra["device"] = card_info
     print(json.dumps({
         "metric": "tracked_frames_per_s_per_chip",
         "value": fps,

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from vslam_torch.models import map_state, tracker
-from vslam_torch.utils import synthetic, trajectory
+from vslam_torch.utils import metrics, synthetic, trajectory
 
 WIDTH, HEIGHT, SEED, N_FRAMES = 752, 480, 3, 16
 PARAMS = dict(n_features=1024, n_levels=8, active_size=4096)
@@ -69,23 +69,14 @@ def main(argv=None) -> dict:
     trk = _track(scene, frames)
     wall = time.perf_counter() - t0
     stages = trk.metrics.summary()["track"]
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _track(scene, frames)
-    counts: dict = {}
-    busy_us = 0.0
-    for e in prof.key_averages():
-        counts[e.key] = counts.get(e.key, 0) + e.count
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += getattr(e, "self_device_time_total", 0)
-    launches = sum(counts.get(k, 0) for k in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    syncs = sum(counts.get(k, 0) for k in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    prof = metrics.profile_counts(lambda: _track(scene, frames))
     tracked = N_FRAMES - 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     out = dict(card=smi, frames=N_FRAMES, fps=N_FRAMES / wall, track_p50_ms=stages["p50_ms"],
-               track_p90_ms=stages["p90_ms"], launches_per_frame=launches / tracked,
-               syncs_per_frame=syncs / tracked, device_busy_ms_per_frame=busy_us / 1e3 / tracked,
+               track_p90_ms=stages["p90_ms"], launches_per_frame=prof["kernel_launches"] / tracked,
+               syncs_per_frame=prof["stream_syncs"] / tracked,
+               device_busy_ms_per_frame=prof["device_busy_ms"] / tracked,
                ate_m=trajectory.ate_rmse(trk.trajectory(), scene.poses_c2w[:N_FRAMES], align=False))
     print(json.dumps(out), flush=True)
     return out

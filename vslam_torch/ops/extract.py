@@ -43,7 +43,24 @@ def level_quotas(total: int, n_levels: int, scale: float) -> list[int]:
     return quotas
 
 
-def extract_batch(
+class WindowInputs(NamedTuple):
+    """What :func:`extract_batch` hands the window kernel, and the keys it
+    describes: the blurred levels that own slots, their slot counts, the
+    (B, N) int32 top-left corners, and per slot its level coordinates,
+    response, validity, octave and scale^octave."""
+
+    blurred: list
+    counts: list
+    x0: torch.Tensor
+    y0: torch.Tensor
+    xy_lvl: torch.Tensor  # (B, N, 2) int64 level coordinates
+    response: torch.Tensor
+    valid: torch.Tensor
+    octave: torch.Tensor  # (N,) int64
+    sf: torch.Tensor  # (N,) f32
+
+
+def window_inputs(
     imgs: torch.Tensor,
     n_levels: int = 8,
     scale: float = 1.2,
@@ -52,9 +69,9 @@ def extract_batch(
     edge_margin: int = 19,
     fast_hi: float = 20.0,
     fast_lo: float = 7.0,
-) -> Keys:
-    """Batched extraction over (B, H, W) float32 images (e.g. a stereo pair).
-    All Keys fields carry a leading batch dim."""
+) -> WindowInputs:
+    """The stages of :func:`extract_batch` before the patch windows: the
+    pyramid, the blur of each level and FAST + ANMS per level quota."""
     B, H, W = imgs.shape
     dev = imgs.device
     shapes = pyramid.level_shapes(H, W, n_levels, scale)
@@ -92,24 +109,40 @@ def extract_batch(
         counts.append(quota)
 
     xy_lvl = torch.cat(xs, dim=1)  # (B, N, 2) level coords
-    resp = torch.cat(resps, dim=1)
-    valid = torch.cat(valids, dim=1)
-    N = xy_lvl.shape[1]
     lvl, sf, lim = _slot_tables(tuple(slot_level), scale, tuple(shapes), P, dev)
     # top-left corners of every slot, clipped into its level, as the JAX
     # extractor clips them per level (vslam_tpu/ops/extract.py:114-115)
     corner = torch.minimum((xy_lvl - half).clamp_(min=0), lim).to(torch.int32)
     x0, y0 = corner.permute(2, 0, 1).contiguous()  # (B, N) each
-    patch_all = patches.extract_windows_levels(blurred, counts, x0, y0, P, P)
+    return WindowInputs(blurred, counts, x0, y0, xy_lvl, torch.cat(resps, dim=1),
+                        torch.cat(valids, dim=1), lvl, sf)
+
+
+def extract_batch(
+    imgs: torch.Tensor,
+    n_levels: int = 8,
+    scale: float = 1.2,
+    total: int = 2048,
+    cell: int = 35,
+    edge_margin: int = 19,
+    fast_hi: float = 20.0,
+    fast_lo: float = 7.0,
+) -> Keys:
+    """Batched extraction over (B, H, W) float32 images (e.g. a stereo pair).
+    All Keys fields carry a leading batch dim."""
+    w = window_inputs(imgs, n_levels, scale, total, cell, edge_margin, fast_hi, fast_lo)
+    P = orb.PATCH
+    patch_all = patches.extract_windows_levels(w.blurred, w.counts, w.x0, w.y0, P, P)
 
     angle = orb.orientation_from_patches(patch_all)
     packed, signed = orb.brief_from_patches(patch_all, angle)
 
+    B, N = w.x0.shape
     return Keys(
-        xy=xy_lvl.to(torch.float32) * sf[None, :, None],
-        octave=lvl[None].expand(B, N),
-        response=resp,
-        valid=valid,
+        xy=w.xy_lvl.to(torch.float32) * w.sf[None, :, None],
+        octave=w.octave[None].expand(B, N),
+        response=w.response,
+        valid=w.valid,
         desc=signed,
         packed=packed,
         angle=angle,

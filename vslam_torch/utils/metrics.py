@@ -101,6 +101,46 @@ def trace(log_dir: str):
         prof.export_chrome_trace(path)
 
 
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def count_events(events, wall_ms: float, top: int = 0) -> dict:
+    """Kernel launches, stream syncs and memcpy calls from the runtime-API
+    events of a recorded ``torch.profiler`` event list (``key_averages()``:
+    each event has ``key``, ``count``, ``device_type`` and
+    ``self_device_time_total`` in us); the device busy time is the sum of
+    the CUDA events' own times. `top`: the kernels with the most device
+    time."""
+    counts: dict = {}
+    for e in events:
+        counts[e.key] = counts.get(e.key, 0) + e.count
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in dev)
+    out = {"kernel_launches": sum(counts.get(k, 0) for k in _LAUNCH_CALLS),
+           "stream_syncs": sum(counts.get(k, 0) for k in _SYNC_CALLS),
+           "memcpy_calls": counts.get("cudaMemcpyAsync", 0),
+           "device_busy_ms": busy_us / 1e3, "profiled_wall_ms": wall_ms}
+    if top:
+        dev.sort(key=lambda e: -getattr(e, "self_device_time_total", 0))
+        out["top_kernels"] = [{"name": e.key[:80], "count": e.count,
+                               "ms": getattr(e, "self_device_time_total", 0) / 1e3} for e in dev[:top]]
+    return out
+
+
+def profile_counts(fn, top: int = 0) -> dict:
+    """:func:`count_events` of one call of fn() under ``torch.profiler``
+    (host ops and CUDA kernels); fn must end with a synchronize, whose own
+    sync is counted. ``profiled_wall_ms`` is the call's wall time with the
+    profiler on."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return count_events(prof.key_averages(), wall_ms, top)
+
+
 def log_event(event: str, stream=None, **fields):
     """One JSON line per event: structured logging the reference never had."""
     rec = {"t": round(time.time(), 3), "event": event} | fields
