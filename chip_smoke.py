@@ -201,7 +201,21 @@ own line:
    and stereo_match on the card against the same stages on the CPU (a
    pool process): keys, octaves, masks, responses, idx_r and matched
    exact, angles and descriptors by phase 19's rules, disparity within
-   1e-3 px and depth within 1e-3 relative; the phase's wall.
+   1e-3 px and depth within 1e-3 relative; the phase's wall;
+22. dryrun, run right after phase 21: the JAX package's multi-device dry
+   run on the port (vslam_torch/dryrun.py) on this card: the entry's
+   frame step at the bench's shapes (one extract_windows launch, the pose
+   within 0.05 m of frame 1's truth), then dryrun_multichip over 4 virtual
+   shards on cuda:0: (a) the live-size two-round BA (20 poses, 4096
+   landmarks, 24,576 rows, 2 + 2 iterations) and (b) the same in 4
+   landmark slabs (1 + 1) against the unsharded card solve (pose log
+   1e-3, points 1e-3, the same kills, error 1e-2 relative), (c) 4
+   sequences at 160x120, one batched frontend per shard, one launch each,
+   every window call torch.equal to its plain version; part (c)'s table
+   (B=2, 3 levels, 128 keys) timed like phase 3's. Its launches are
+   "dryrun" in launches_by_phase. Four distinct cards are not this
+   script's: `python -m vslam_torch.dryrun --devices 4` on a 4-card
+   machine.
 
 Frames are rendered on the host by 8 processes forked at start-up,
 before CUDA is initialized, and stopped at the end. The CPU sides of the
@@ -230,7 +244,7 @@ import time
 import numpy as np
 import torch
 
-from vslam_torch import bench, kernels, native, run_batch, run_dataset, run_synthetic
+from vslam_torch import bench, dryrun, kernels, native, run_batch, run_dataset, run_synthetic
 from vslam_torch.geometry import se3, triangulate
 from vslam_torch.kernels import timing
 from vslam_torch.models import local_mapper, loop_closure, map_state, pose_graph, reloc, system, tracker
@@ -504,29 +518,8 @@ def _table(cases, agree, smi, shape) -> dict:
 
     n0 = patches.LAUNCHES
     patches.extract_windows_levels(levels, counts, x0, y0, P, P)
-    launches_per_frame = patches.LAUNCHES - n0
-    idx = timing.gather_index(levels, counts, x0, y0, P)
-    frame_bytes, covered = timing.window_bytes(idx, x0, P)
-    bound_ms = frame_bytes / timing.HBM_BYTES_PER_S * 1e3
-
-    def stage():
-        patches.extract_windows_levels(levels, counts, x0, y0, P, P)
-
-    def plain():
-        patches.extract_windows_levels_ref(levels, counts, x0, y0, P, P)
-
-    def library():
-        for img, ix in idx:
-            img[ix]
-
-    t = {
-        "launches_per_frame": launches_per_frame,
-        "device_ms": timing.primed_device_ms(stage),
-        "host_ms_per_call": timing.host_ms_per_call(stage),
-        "plain_ms": timing.primed_device_ms(plain, reps=4),
-        "library_ms": timing.primed_device_ms(library, reps=8),
-        "bound_ms": bound_ms,
-    }
+    t = {"launches_per_frame": patches.LAUNCHES - n0, **timing.window_table(levels, counts, x0, y0, P)}
+    frame_bytes, covered = t.pop("bytes"), t.pop("covered_pixels")
     say("kernel", name="extract_windows", shape=shape, card=smi, frame_bytes=frame_bytes,
         covered_pixels=covered, equal=True, clamped_equal=True, **t)
     return t
@@ -2407,7 +2400,7 @@ def phase_tools(frames_future: list) -> dict:
     scene = tool_common.bench_scene(roofline.N_FRAMES)
     cpu = _cpu_side(_roofline_frame_cpu, frames[roofline.FRAME], float(scene.K[0, 0]), float(scene.baseline))
     with _plain_calls() as plain_devices:
-        roof = roofline.run(frames=frames, reps=TOOLS_REPS)
+        roof = roofline.run(frames=frames, reps=TOOLS_REPS, twins=False)  # no plain call on the card
         plain = len(plain_devices)
     rows = roof["rows"]
     say("tools_roofline", rows=[{k: r[k] for k in ("stage", "device_ms", "device_method", "dispatch_ms",
@@ -2445,6 +2438,52 @@ def phase_tools(frames_future: list) -> dict:
     return {"tools_warmup": roof["warmup_extract_windows_launches"]}
 
 
+DRYRUN_SHARDS = 4  # the multi-device dry run over virtual shards on cuda:0
+
+
+def phase_dryrun(smi) -> tuple[int, dict]:
+    """Phase 22: the JAX package's multi-device dry run on the port
+    (vslam_torch/dryrun.py), on one card: the entry's frame step (one
+    extract_windows launch, its pose within ATE_GATE_M of frame 1's truth),
+    then dryrun_multichip over DRYRUN_SHARDS virtual shards on cuda:0,
+    parts (a) and (b) against the unsharded card solve (pose log 1e-3,
+    points 1e-3, the same kills, error 1e-2 relative) and part (c)'s
+    window calls against their plain version (torch.equal), one launch per
+    shard's batched frame; part (c)'s window table timed. Returns the
+    phase's launches and that table."""
+    t_phase = time.perf_counter()
+    dev = "cuda:0"
+    n0 = patches.LAUNCHES
+    fn, args = dryrun.entry(dev)
+    n1 = patches.LAUNCHES
+    _, outputs = fn(*args)
+    pose = outputs["blob"][:16].reshape(4, 4).cpu().numpy()
+    n_step = patches.LAUNCHES - n1
+    truth = synthetic.make_scene(n_frames=2, n_points=600, width=WIDTH, height=HEIGHT, fps=20.0,
+                                 seed=SEED).poses_c2w[1]
+    err_m = float(np.linalg.norm(pose[:3, 3] - truth[:3, 3]))
+    res = dryrun.dryrun_multichip(DRYRUN_SHARDS, devices=[dev] * DRYRUN_SHARDS)
+    launches = patches.LAUNCHES - n0
+    ref = dryrun.unsharded(dryrun.dryrun_problem(DRYRUN_SHARDS, dev))
+    agree = {part: dryrun.compare(res[part], ref[part]) for part in ("a", "b")}
+    c = res["c"]
+    (table,) = dryrun.window_tables(c["calls"][:1])
+    err = max(w["max_abs_err"] for w in c["windows"])
+    table.update(max_abs_err=err, launches_per_frame=c["launches"][0])
+    say("dryrun", entry_launches=n_step, entry_init_launches=n1 - n0, entry_pose_err_m=err_m,
+        mesh=res["mesh"], a_iters=res["a"]["iters"], b_iters=res["b"]["iters"],
+        walls_s={k: res[k]["wall_s"] for k in "abc"}, unsharded_walls_s={k: ref[k]["wall_s"] for k in "ab"},
+        agreement=agree, c_launches=c["launches"], c_windows=c["windows"], c_table=table, card=smi,
+        launches=launches, wall_s=time.perf_counter() - t_phase)
+    if n_step != 1 or not np.isfinite(pose).all() or err_m > ATE_GATE_M:
+        raise AssertionError(f"dry run entry: {n_step} launches, pose {pose[:3, 3]} ({err_m} m from the truth)")
+    if not all(a["within"] for a in agree.values()):
+        raise AssertionError(f"dry run parts (a), (b) against the unsharded solve: {agree}")
+    if c["launches"] != [1] * DRYRUN_SHARDS or not all(w["equal"] for w in c["windows"]):
+        raise AssertionError(f"dry run part (c): launches {c['launches']}, windows {c['windows']}")
+    return launches, table
+
+
 def main() -> int:
     global _POOL
     with concurrent.futures.ProcessPoolExecutor(
@@ -2471,6 +2510,7 @@ def run() -> int:
     # phase 21 runs here, before any mapper: once the async mapper has run
     # in a process, torch.profiler can lose the kernels of a short call
     launches_tools = phase_tools(tools_frames)
+    launches_dryrun, t_dryrun = phase_dryrun(smi)
     sys_scene = synthetic.make_scene(n_frames=SYS_SCENE_FRAMES, n_points=900, width=WIDTH,
                                      height=HEIGHT, fps=20.0, seed=SEED)
     launches, sys_pairs, window, sys_, sync_fps = phase_system(sys_scene, ate_trk)
@@ -2511,7 +2551,7 @@ def run() -> int:
                               "mono_system": launches_mono, "relocalization": launches_recovery,
                               "loop_circuit": launches_loop, "dataset_kitti": launches_ds_kitti,
                               "dataset_euroc": launches_ds_euroc, **launches_par, **launches_api,
-                              **launches_bench, **launches_tools},
+                              **launches_bench, **launches_tools, "dryrun": launches_dryrun},
         "launches_per_frame": t["launches_per_frame"],
         "max_abs_err": t["max_abs_err"],
         "ms": t["device_ms"],
@@ -2525,7 +2565,7 @@ def run() -> int:
             "max_abs_err", "launches_per_frame", "device_ms", "host_ms_per_call", "plain_ms",
             "bound_ms", "library_ms")} for name, tab in (("kitti", t_kitti), ("mono", t_mono),
                                                          ("loop", t_loop), ("kitti00", t_kitti00),
-                                                         *t_batch.items())},
+                                                         ("dryrun", t_dryrun), *t_batch.items())},
     }]}
     print(smi)
     print(json.dumps(report))

@@ -8,10 +8,14 @@ reduction and the split BA rounds, single-image extraction against the
 image-space ORB, the pose graphs, the split-map loop closure, the batched
 frontend's kernel tables and run, the sharded BA over virtual shards
 on one card, and each measuring tool's main (vslam_torch/tools) at a
-small size. They skip without a card. This file
+small size. They skip without a card. The last ones (named ``*cards*``)
+need four cards and skip with fewer: the multi-device dry run
+(vslam_torch/dryrun.py) across cuda:0..3 and over NCCL, VSlamSystem
+(shards=4), run_global and run_dataset over a 4-card mesh. This file
 imports no jax (the GPU machine has none); run it there with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
+    python -m pytest -q -s -m cuda tests/test_torch_cuda.py -k cards   # four cards
 """
 
 import numpy as np
@@ -588,3 +592,273 @@ def test_tool_main_on_card(dev, name):
         (patch,) = [r for r in line["rows"] if r["stage"].startswith("patches frame")]
         assert patch["extract_windows_launches"] == 1 and patch["syncs"] == 0
         assert line["warmup_extract_windows_launches"] == line["warmup_frames"]
+
+
+# ---------------------------------------------------------------------------
+# Across four cards (vslam_torch/dryrun.py, VSlamSystem(shards=4),
+# run_global and run_dataset over a 4-card mesh). They need 4 cards and
+# skip with fewer; each prints one JSON line of what it measured.
+
+N_CARDS = 4
+SYS_FRAMES = 40  # chip_smoke.py phase 6: the first 40 frames of the bench's 80-frame scene
+SYS_ATE_GATE_M, SYS_POSE_TOL_M = 0.05, 1e-3
+FRONTEND_TOL_M = 2e-3  # a batch against its solo runs, tests/test_parallel.py:292
+DS_ATE_GATE_M = 0.08  # tests/test_driver.py:118 (uint8 PNG input)
+
+
+@pytest.fixture(scope="module")
+def cards():
+    if not torch.cuda.is_available():
+        pytest.skip(f"needs {N_CARDS} CUDA cards (the CUDA kernels have no CPU or interpret mode)")
+    n = torch.cuda.device_count()
+    if n < N_CARDS:
+        pytest.skip(f"needs {N_CARDS} CUDA cards; {n} visible")
+    from vslam_torch.parallel import mesh as mesh_mod
+
+    return [str(d) for d in mesh_mod.make_mesh(N_CARDS).devices]  # cuda:0..3
+
+
+@pytest.fixture(scope="module")
+def dryrun_cards(cards):
+    """The dry run over cuda:0..3, over four virtual shards on cuda:0, and
+    parts (a) and (b) unsharded on cuda:0."""
+    from vslam_torch import dryrun
+
+    res = dryrun.dryrun_multichip(N_CARDS)
+    virt = dryrun.dryrun_multichip(N_CARDS, devices=["cuda:0"] * N_CARDS)
+    return res, virt, dryrun.unsharded(dryrun.dryrun_problem(N_CARDS, "cuda:0"))
+
+
+def _emit(test: str, **fields):
+    import json
+
+    print(json.dumps({"test": test, **fields}), flush=True)
+
+
+@pytest.mark.parametrize("part", ["a", "b"])
+def test_dryrun_solve_on_four_cards_equals_virtual_shards(cards, dryrun_cards, part):
+    """Part (a) (the live-size two-round BA, 2 + 2 iterations) and part (b)
+    (4 landmark slabs, 1 + 1) on cuda:0..3: bit for bit the same solve over
+    four virtual shards on cuda:0 (the same kernels on the same inputs,
+    the partials summed on cuda:0 in shard order), and within
+    test_sharded_ba_on_card_with_virtual_shards's tolerances of the
+    unsharded cuda:0 solve."""
+    from vslam_torch import dryrun
+
+    res, virt, ref = dryrun_cards
+    assert res["mesh"] == cards
+    vs_virtual, vs_unsharded = dryrun.compare(res[part], virt[part]), dryrun.compare(res[part], ref[part])
+    _emit(f"dryrun_{part}_cards", wall_s=res[part]["wall_s"], virtual_wall_s=virt[part]["wall_s"],
+          unsharded_wall_s=ref[part]["wall_s"], iters=res[part]["iters"], vs_virtual=vs_virtual,
+          vs_unsharded=vs_unsharded)
+    assert vs_virtual["bit_equal"], vs_virtual
+    assert vs_unsharded["within"], vs_unsharded
+
+
+def test_dryrun_frontend_on_four_cards(cards, dryrun_cards):
+    """Part (c): sequence s's tracker on cuda:s, one batched step per card.
+    Each card made one extract_windows launch, equal to its plain version
+    on the same card; the trajectories are bit for bit those of four
+    one-sequence frontends on cuda:0, and within FRONTEND_TOL_M of one
+    four-sequence batch on cuda:0."""
+    from vslam_torch import dryrun
+
+    res, virt, _ = dryrun_cards
+    c = res["c"]
+    assert c["devices"] == cards and c["launches"] == [1] * N_CARDS
+    assert [w["device"] for w in c["windows"]] == cards
+    assert all(w["equal"] and w["max_abs_err"] == 0.0 for w in c["windows"]), c["windows"]
+    batch = dryrun.dryrun_frontend(["cuda:0"] * N_CARDS, split=False)
+    gap = float(np.abs(c["poses"][..., :3, 3] - batch["poses"][..., :3, 3]).max())
+    _emit("dryrun_c_cards", wall_s=c["wall_s"], launches=c["launches"], windows=c["windows"],
+          vs_virtual_equal=bool(np.array_equal(c["poses"], virt["c"]["poses"])), vs_one_batch_max_dt_m=gap,
+          vs_one_batch_equal=bool(np.array_equal(c["poses"], batch["poses"])))
+    assert np.isfinite(c["poses"]).all()
+    assert np.array_equal(c["poses"], virt["c"]["poses"])
+    assert gap <= FRONTEND_TOL_M
+
+
+def test_nccl_processes_on_four_cards(cards):
+    """Part (a) over four processes, one card each, joined by NCCL: the
+    ranks' results are identical, and each is within the card tolerances of
+    the single-process four-card solve (NCCL's all-reduce adds the four
+    partials in its own order, the single process in shard order)."""
+    from vslam_torch import dryrun
+
+    out = dryrun.run_processes(N_CARDS, "cuda")
+    _emit("dryrun_nccl_cards", ranks=out["ranks"], single_process_wall_s=out["single_process_wall_s"])
+    assert [r["rank"] for r in out["ranks"]] == list(range(N_CARDS))
+    for r in out["ranks"]:
+        assert r["iters"] == [2, 2] and r["vs_single_process"]["within"], r
+    for res in out["results"][1:]:
+        for k in ("poses", "pts", "err", "kill"):
+            assert np.array_equal(res[k], out["results"][0][k]), k
+
+
+def test_run_global_on_four_cards(cards):
+    """LocalMapper.run_global on chip_smoke.py phase 15's corridor (256
+    keyframes, 50,000 landmarks, 8 slabs) with a 4-card mesh, and without:
+    phase 15's gates on both (8 slabs, error < 0.01 per observation,
+    relative error < 0.7x the drifted one); wall per LM iteration, and the
+    launches and each card's device busy of one slabbed iteration."""
+    import time
+
+    from vslam_torch.models import local_mapper
+    from vslam_torch.parallel import mesh as mesh_mod
+    from vslam_torch.tools import measure_ba_scaling
+
+    out = {}
+    for name, m in (("unsharded", None), ("cards", mesh_mod.make_mesh(N_CARDS))):
+        world, c = synthetic.corridor_world(256, 50_000, 1024, device="cuda")
+        rng = np.random.default_rng(1)
+        drift = np.cumsum(rng.normal(0, 0.004, (256, 3)), axis=0).astype(np.float32)
+        drift[0] = 0.0
+        pert = c["poses"].copy()
+        pert[:, :3, 3] += drift
+        world.arrays.kf_pose.copy_(torch.from_numpy(pert))
+        world.kf_poses_host[:] = pert
+        mapper = local_mapper.LocalMapper(world, c["K"], c["baseline"],
+                                          local_mapper.LocalMapperConfig(iters_round1=3, iters_round2=5), mesh=m)
+        solve, problems = local_mapper.schur.local_ba_two_rounds, []
+
+        def recording(p, *args, **kwargs):
+            problems.append((p, kwargs.get("n_slabs", 1)))
+            return solve(p, *args, **kwargs)
+
+        local_mapper.schur.local_ba_two_rounds = recording
+        try:
+            measure_ba_scaling._sync("cuda")
+            t0 = time.perf_counter()
+            r = mapper.run_global(max_landmarks=1 << 17)
+            measure_ba_scaling._sync("cuda")
+            wall = time.perf_counter() - t0
+        finally:
+            local_mapper.schur.local_ba_two_rounds = solve
+        n_obs = int((c["obs_lm"] >= 0).sum())
+        rel = lambda ps: float(np.mean(np.linalg.norm(  # noqa: E731
+            (np.linalg.inv(ps[:-5]) @ ps[5:])[:, :3, 3] - (np.linalg.inv(c["poses"][:-5]) @ c["poses"][5:])[:, :3, 3],
+            axis=1)))
+        iters = mapper.counters.get("lm_iters_round1") + mapper.counters.get("lm_iters_round2")
+        p, n_slabs = problems[-1]
+        out[name] = {"wall_s": wall, "lm_iters": iters, "wall_ms_per_iter": wall * 1e3 / iters,
+                     "n_slabs": n_slabs, "error_per_obs": r["error"] / n_obs,
+                     "rel_err": [rel(pert), rel(world.kf_poses_host[:256])],
+                     **measure_ba_scaling.iteration_profile(p, m, n_slabs)}
+    _emit("run_global_cards", **out)
+    for name, o in out.items():
+        assert o["n_slabs"] == 8 and o["error_per_obs"] < 0.01, (name, o)
+        assert o["rel_err"][1] < 0.7 * o["rel_err"][0], (name, o)
+
+
+@pytest.fixture(scope="module")
+def bench_frames(cards):
+    """The first SYS_FRAMES frames of the bench's 80-frame scene, on cuda:0."""
+    from vslam_torch.tools import _common
+
+    scene = _common.bench_scene(80)
+    frames = _common.scene_frames(scene)[:SYS_FRAMES]
+    return scene, [torch.from_numpy(f).to("cuda:0", torch.float32) for f in frames]
+
+
+def _bench_system(scene, shards, async_ba):
+    """chip_smoke.py phase 6's facade (the bench's tracker parameters and
+    map capacities) with `shards` and the sync or async mapper."""
+    K = scene.K
+    cam = {"fx": float(K[0, 0]), "fy": float(K[1, 1]), "cx": float(K[0, 2]), "cy": float(K[1, 2])}
+    conf = ConfigFile.from_dict({
+        "rectified": True, "slamMode": 1, "Camera_l": dict(cam), "Camera_r": dict(cam),
+        "Camera": {"width": scene.width, "height": scene.height, "fps": 20.0, "bl": float(scene.baseline)},
+        "FE": {"nFeatures": 1024, "nLevels": 8, "imScale": 1.2},
+    })
+    sys_ = system.VSlamSystem(conf, async_ba=async_ba, lm_capacity=1 << 15, kf_capacity=128, shards=shards,
+                              tracker_params=tracker.TrackerParams(n_features=1024, n_levels=8, active_size=4096))
+    sys_.deterministic_ba_latency = True
+    return sys_
+
+
+@pytest.mark.parametrize("async_ba", [False, True], ids=["sync", "async"])
+def test_system_shards_on_four_cards(cards, bench_frames, async_ba):
+    """VSlamSystem(shards=4) over the bench's first 40 frames against
+    shards=None: the same keyframe slots and BA count, poses within 1e-3
+    m, ATE <= 0.05 m; fps, BA walls and the window kernel's launches (one
+    per frame) of both."""
+    import time
+
+    from vslam_torch.utils import trajectory
+
+    scene, frames = bench_frames
+    out = {}
+    for shards in (None, N_CARDS):
+        sys_ = _bench_system(scene, shards, async_ba)
+        assert (sys_.mapper.mesh is None) == (shards is None)
+        if shards:
+            assert [str(d) for d in sys_.mapper.mesh.devices] == cards
+        n0 = patches.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fr in frames:
+            sys_.track_stereo(fr[0], fr[1])
+        sys_.exit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        traj = sys_.trajectory()
+        out[shards] = {"fps": len(frames) / wall, "launches": patches.LAUNCHES - n0,
+                       "keyframes": list(sys_.tracker.new_kf_slots), "ba_runs": sys_.mapper.ba_count,
+                       "ate_m": trajectory.ate_rmse(traj, scene.poses_c2w[: len(traj)], align=False),
+                       "ba": sys_.mapper.metrics.summary(), "traj": traj}
+    a, b = out[None], out[N_CARDS]
+    dt = float(np.linalg.norm(a["traj"][:, :3, 3] - b["traj"][:, :3, 3], axis=1).max())
+    _emit(f"system_{'async' if async_ba else 'sync'}_cards", max_dt_m=dt,
+          **{str(k): {n: v for n, v in o.items() if n != "traj"} for k, o in out.items()})
+    assert a["launches"] == b["launches"] == SYS_FRAMES
+    assert a["keyframes"] == b["keyframes"] and a["ba_runs"] == b["ba_runs"] > 0
+    assert dt <= SYS_POSE_TOL_M
+    assert a["ate_m"] <= SYS_ATE_GATE_M and b["ate_m"] <= SYS_ATE_GATE_M
+
+
+def test_run_dataset_shards_on_four_cards(cards, tmp_path):
+    """python -m vslam_torch.run_dataset --shards 4 on 20 frames in the
+    KITTI layout at KITTI 00's 1241x376 (chip_smoke.py phase 17's scene,
+    seed 6, uint8 PNGs), against the same run unsharded: the same
+    keyframes and BA runs, trajectories within 1e-3 m, ATE <= 0.08 m."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from vslam_torch import run_dataset
+    from vslam_torch.utils import trajectory
+
+    n = 20
+    scene = synthetic.make_scene(n_frames=n, n_points=900, width=1241, height=376, fps=10.0, seed=6)
+    for sub in ("image_0", "image_1"):
+        os.makedirs(tmp_path / sub)
+        for f in range(n):
+            img = scene.render(f, right=sub == "image_1")
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(tmp_path / sub / f"{f:06d}.png")
+    np.savetxt(tmp_path / "times.txt", scene.times[:n])
+    K = scene.K
+    cam = {"fx": float(K[0, 0]), "fy": float(K[1, 1]), "cx": float(K[0, 2]), "cy": float(K[1, 2])}
+    cfg = tmp_path / "config.json"
+    cfg.write_text(json.dumps({
+        "rectified": True, "slamMode": 1, "dataset": "KITTI", "imagesPath": str(tmp_path),
+        "fileExtension": ".png", "Camera_l": cam, "Camera_r": cam,
+        "Camera": {"width": 1241, "height": 376, "fps": 10.0, "bl": float(scene.baseline)},
+        "FE": {"nFeatures": 2000, "nLevels": 8, "imScale": 1.2, "edgeThreshold": 19,
+               "maxFastThreshold": 20, "minFastThreshold": 7},
+    }))
+    out = {}
+    for shards in (None, str(N_CARDS)):
+        path = tmp_path / f"traj_{shards}.txt"
+        r = run_dataset.main([str(cfg), "--no-prefetch", "--out", str(path)]
+                             + (["--shards", shards] if shards else []))
+        traj = trajectory.load_kitti_trajectory(str(path))
+        out[shards] = {**{k: r[k] for k in ("frames", "fps", "keyframes", "ba_runs")},
+                       "ate_m": trajectory.ate_rmse(traj, scene.poses_c2w[:n], align=False), "traj": traj}
+    a, b = out[None], out[str(N_CARDS)]
+    dt = float(np.linalg.norm(a["traj"][:, :3, 3] - b["traj"][:, :3, 3], axis=1).max())
+    _emit("run_dataset_cards", max_dt_m=dt, **{str(k): {n: v for n, v in o.items() if n != "traj"}
+                                               for k, o in out.items()})
+    assert a["frames"] == b["frames"] == n
+    assert a["keyframes"] == b["keyframes"] and a["ba_runs"] == b["ba_runs"]
+    assert dt <= SYS_POSE_TOL_M and a["ate_m"] <= DS_ATE_GATE_M and b["ate_m"] <= DS_ATE_GATE_M

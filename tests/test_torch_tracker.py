@@ -250,9 +250,9 @@ def test_unported_paths_raise(scene):
 
 
 def test_port_never_imports_jax():
-    """``import vslam_torch`` plus a 2-frame CPU track and a 2-frame batch
-    of two sequences, in a fresh interpreter where importing jax fails
-    loudly."""
+    """``import vslam_torch`` plus a 2-frame CPU track, a 2-frame batch of
+    two sequences and the multi-device dry run's problem and split
+    frontend, in a fresh interpreter where importing jax fails loudly."""
     code = textwrap.dedent(
         """
         import importlib.abc, sys
@@ -293,6 +293,10 @@ def test_port_never_imports_jax():
         front.flush()
         assert all(x.trajectory().shape == (2, 4, 4) for x in ts)
         assert sharded_ba.sharded_two_rounds(mesh.make_mesh(2, device="cpu")) is not None
+        # the multi-device dry run: its problem and its split frontend
+        from vslam_torch import dryrun
+        assert dryrun.dryrun_problem(2, "cpu").obs_kf.shape == (24576,)
+        assert np.isfinite(dryrun.dryrun_frontend(["cpu"] * 2)["poses"]).all()
         assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
         print("NO_JAX_OK")
         """

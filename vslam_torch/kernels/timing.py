@@ -140,6 +140,28 @@ def window_bytes(idx, x0, P: int) -> tuple[int, int]:
     return 4 * (B * N * P * P + covered + 2 * B * N), covered
 
 
+def window_table(levels, counts, x0, y0, P: int) -> dict:
+    """One window table (as extract_batch calls the kernel: every level in
+    one launch) timed on the card that holds it: the kernel's device ms on
+    a primed stream and host ms per call, its plain version's device ms,
+    one advanced-indexing call per level (the library yardstick), and the
+    bound from the bytes the call must move (:func:`window_bytes`)."""
+    from vslam_torch.ops import patches
+
+    with torch.cuda.device(x0.device):
+        idx = gather_index(levels, counts, x0, y0, P)
+        nbytes, covered = window_bytes(idx, x0, P)
+        return {
+            "device_ms": primed_device_ms(lambda: patches.extract_windows_levels(levels, counts, x0, y0, P, P)),
+            "host_ms_per_call": host_ms_per_call(
+                lambda: patches.extract_windows_levels(levels, counts, x0, y0, P, P)),
+            "plain_ms": primed_device_ms(
+                lambda: patches.extract_windows_levels_ref(levels, counts, x0, y0, P, P), reps=4),
+            "library_ms": primed_device_ms(lambda: [img[ix] for img, ix in idx], reps=8),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes, "covered_pixels": covered,
+        }
+
+
 def _bench_frame_inputs(pyramid, seed: int = 3):
     """The window stage's inputs for one stereo frame at the bench
     configuration: the 8 blurred levels of a seeded image pair, the level

@@ -19,6 +19,8 @@ math is the same, only nothing runs in parallel.
 
 from __future__ import annotations
 
+import datetime
+
 import torch
 import torch.distributed as dist
 
@@ -111,16 +113,27 @@ def make_mesh(n_devices: int | None = None, *, devices=None, device="cuda", grou
 
 def initialize_distributed(
     coordinator: str | None = None, num_processes: int | None = None,
-    process_id: int | None = None, backend: str | None = None,
+    process_id: int | None = None, backend: str | None = None, timeout_s: float | None = None,
 ):
     """Multi-process runtime init (call once per process before make_mesh):
     ``torch.distributed`` over TCP at `coordinator` ("host:port"), gloo
     unless `backend` says otherwise (NCCL for CUDA meshes, one card per
-    process). Returns the process group, or None when single-process."""
+    process). Under NCCL the process's card (rank modulo the cards) is made
+    current and named to the group before the group is made, so each rank
+    opens its communicator on its own card. `timeout_s` bounds every
+    collective (a rank that never joins fails the others instead of
+    hanging them). Returns the process group, or None when single-process."""
     if not num_processes or num_processes <= 1:
         return None
+    kw = {}
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
+    if backend == "nccl":
+        card = torch.device("cuda", process_id % torch.cuda.device_count())
+        torch.cuda.set_device(card)
+        kw["device_id"] = card
     dist.init_process_group(
         backend or "gloo", init_method=f"tcp://{coordinator}",
-        world_size=num_processes, rank=process_id,
+        world_size=num_processes, rank=process_id, **kw,
     )
     return dist.group.WORLD

@@ -17,7 +17,12 @@ On the card the shards are virtual shards on one card
 (``make_mesh(devices=["cuda:0"] * n)``): one card measures what sharding
 costs (its extra launches and collectives), not how it scales across
 cards. ``--device cpu`` runs them as virtual CPU shards, as the JAX tool
-did. Prints one line per mesh and one JSON line.
+did. ``--cards`` runs the live and the global window on meshes of 1, 2
+and 4 distinct cards (``make_mesh(n)``; it raises with fewer cards) next
+to virtual shards at the same sizes, and adds each mesh's kernel
+launches and each card's device busy per LM iteration (profiled: (a
+5-iteration solve - a 1-iteration one) / 4). Prints one line per mesh and
+one JSON line.
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ from vslam_torch.geometry import se3
 from vslam_torch.ops import schur
 from vslam_torch.parallel import mesh as mesh_mod
 from vslam_torch.tools import _common
+from vslam_torch.utils import metrics
 
 SHARDS = (1, 2, 4, 8)
+CARDS = (1, 2, 4)
 
 
 def build_problem(Wn: int = 20, L: int = 4096, obs_per_lm: int = 6, seed: int = 0, device="cuda") -> schur.BAProblem:
@@ -74,16 +81,21 @@ def build_problem(Wn: int = 20, L: int = 4096, obs_per_lm: int = 6, seed: int = 
     )
 
 
-def _mesh(n: int, device):
+def _mesh(n: int, device, cards: bool = False):
+    """n virtual shards on `device`, or (`cards`) n distinct cards."""
     dev = torch.device(device)
+    if cards:
+        return mesh_mod.make_mesh(n)
     if dev.type == "cuda":
         return mesh_mod.make_mesh(devices=[dev] * n)
     return mesh_mod.make_mesh(n, device="cpu")
 
 
 def _sync(device):
+    """Wait for every card (a mesh's shards may hold work on any)."""
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def time_solve(p: schur.BAProblem, mesh, iters: int, n: int = 3) -> float:
@@ -102,16 +114,53 @@ def ms_per_iter(p: schur.BAProblem, mesh, reps: int = 3) -> float:
     return (time_solve(p, mesh, 21, reps) - time_solve(p, mesh, 1, reps)) / 20.0 * 1e3
 
 
-def run_suite(name: str, p: schur.BAProblem, device, shards=SHARDS, reps: int = 3) -> list:
-    print(f"[{name}] W={p.poses.shape[0]} L={p.pts.shape[0]} O={p.obs_kf.shape[0]}", flush=True)
+def iteration_profile(p: schur.BAProblem, mesh, n_slabs: int = 1) -> dict:
+    """Kernel launches, copy calls (the peer copies between cards among
+    them) and each card's device busy per LM iteration: (a 5-iteration
+    solve - a 1-iteration one) / 4, each profiled once; and, with a mesh,
+    the wall of one ``schur._shards`` call (the copy of every problem field
+    to every shard, made twice an iteration: for the step and for the
+    trial error), the median of 5."""
+    dev = p.poses.device
+
+    def profile(iters):
+        return metrics.profile_counts(
+            lambda: (schur.local_ba(p, iters=iters, rel_tol=0.0, mesh=mesh, n_slabs=n_slabs), _sync(dev)),
+            by_card=True)
+
+    one, five = profile(1), profile(5)
+    b1, b5 = one["device_busy_ms_by_card"], five["device_busy_ms_by_card"]
+    out = {"launches_per_iter": (five["kernel_launches"] - one["kernel_launches"]) / 4,
+           "memcpy_per_iter": (five["memcpy_calls"] - one["memcpy_calls"]) / 4,
+           "device_busy_ms_per_iter_by_card": {k: (b5.get(k, 0.0) - b1.get(k, 0.0)) / 4
+                                               for k in sorted(set(b1) | set(b5))}}
+    if mesh is not None:
+        walls = []
+        for _ in range(5):
+            _sync(dev)
+            t0 = time.perf_counter()
+            schur._shards(p, mesh)
+            _sync(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["shards_copy_ms"] = sorted(walls)[2]
+    return out
+
+
+def run_suite(name: str, p: schur.BAProblem, device, shards=SHARDS, reps: int = 3, cards: bool = False) -> list:
+    """ms per LM iteration on each mesh size; `cards`: meshes of distinct
+    cards, with each one's iteration profile."""
+    kind = "cards" if cards else "shards"
+    print(f"[{name}] W={p.poses.shape[0]} L={p.pts.shape[0]} O={p.obs_kf.shape[0]} ({kind})", flush=True)
     rows, base = [], None
     for n in shards:
-        ms = ms_per_iter(p, None if n == 1 else _mesh(n, device), reps)
+        mesh = None if n == 1 else _mesh(n, device, cards)
+        ms = ms_per_iter(p, mesh, reps)
         base = base or ms
-        rows.append({"suite": name, "shards": n, "ms_per_lm_iter": ms, "iters_per_s": 1e3 / ms,
-                     "vs_1_shard": base / ms})
-        print(f"  shards={n}: {ms:.2f} ms/LM-iter -> {1e3 / ms:.1f} iters/s (vs 1-shard: {base / ms:.2f}x)",
-              flush=True)
+        row = {"suite": name, kind: n, "ms_per_lm_iter": ms, "iters_per_s": 1e3 / ms, f"vs_1_{kind[:-1]}": base / ms}
+        if cards:
+            row.update(iteration_profile(p, mesh))
+        rows.append(row)
+        print(f"  {kind}={n}: {ms:.2f} ms/LM-iter -> {1e3 / ms:.1f} iters/s (vs 1: {base / ms:.2f}x)", flush=True)
     return rows
 
 
@@ -129,11 +178,25 @@ def run_slab_compute(name: str, Wn: int, L_full: int, device, shards=SHARDS, rep
     return rows
 
 
-def run(device="cuda", reps: int = 3) -> list:
+def run(device="cuda", reps: int = 3, cards: bool = False) -> list:
+    """The virtual-shard suites and the slab compute; `cards`: the live and
+    the global window on 1, 2 and 4 virtual shards and on as many
+    distinct cards (which it needs: it raises with fewer)."""
     if torch.device(device).type == "cuda":
         _common.require_card("measure_ba_scaling")
-    rows = run_suite("local window", build_problem(device=device), device, reps=reps)
-    rows += run_suite("global window", build_problem(Wn=64, L=16384, device=device), device, reps=reps)
+    problems = {"local window": build_problem(device=device),
+                "global window": build_problem(Wn=64, L=16384, device=device)}
+    if cards:
+        if torch.cuda.device_count() < max(CARDS):
+            raise ValueError(f"--cards needs {max(CARDS)} cards; {torch.cuda.device_count()} visible")
+        rows = []
+        for name, p in problems.items():
+            rows += run_suite(name, p, device, CARDS, reps)
+            rows += run_suite(name, p, device, CARDS, reps, cards=True)
+        return rows
+    rows = []
+    for name, p in problems.items():
+        rows += run_suite(name, p, device, reps=reps)
     rows += run_slab_compute("global window slab compute", 64, 16384, device, reps=reps)
     return rows
 
@@ -141,11 +204,15 @@ def run(device="cuda", reps: int = 3) -> list:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", help="cuda (virtual shards on one card) or cpu")
+    ap.add_argument("--cards", action="store_true", help="also meshes of 1, 2 and 4 distinct cards")
     args = ap.parse_args(argv)
-    rows = run(args.device)
-    virtual = "virtual shards on one card: the cost of sharding, not scaling across cards"
+    if args.cards and torch.device(args.device).type != "cuda":
+        raise ValueError("--cards measures meshes of CUDA cards")
+    rows = run(args.device, cards=args.cards)
     if torch.device(args.device).type == "cuda":
-        return _common.emit("measure_ba_scaling", rows, mesh=virtual)
+        mesh = ("virtual shards on cuda:0 (shards) and distinct cards (cards)" if args.cards else
+                "virtual shards on one card: the cost of sharding, not scaling across cards")
+        return _common.emit("measure_ba_scaling", rows, mesh=mesh, cards_visible=torch.cuda.device_count())
     line = {"tool": "measure_ba_scaling", "device": {"name": "cpu"}, "mesh": "virtual CPU shards", "rows": rows}
     print(json.dumps(line), flush=True)
     return line

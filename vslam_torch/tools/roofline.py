@@ -21,7 +21,9 @@ shared warm-up (8 frames tracked and mapped), it measures:
 
 The patch stage has two rows: the JAX tool's call shape (the level-0 keys'
 windows of the unblurred frame, one ``extract_windows`` call) and the
-production frame (every level in one ``extract_windows_levels`` launch).
+production frame (every level in one ``extract_windows_levels`` launch);
+each also times, on a primed stream, the kernel's plain version
+(``plain_ms``) and one advanced-indexing call per level (``library_ms``).
 Prints a markdown table and one JSON line.
 """
 
@@ -85,6 +87,13 @@ def frame_stages(LR: torch.Tensor, p: tracker.TrackerParams, fx, baseline) -> di
         idx = timing.gather_index(levels, q, xs, ys, P)
         return lambda out: {"flop": 0, "bytes": timing.window_bytes(idx, xs, P)[0]}
 
+    def with_twins(fn, plain, levels, q, xs, ys):
+        """The kernel call `fn`, carrying its plain version and the library
+        yardstick (one advanced-indexing call per level) as ``fn.twins``."""
+        idx = timing.gather_index(levels, q, xs, ys, P)
+        fn.twins = {"plain": plain, "library": lambda: [img[ix] for img, ix in idx]}
+        return fn
+
     N = p.n_features
     return {
         "extract_batch(x2)": (
@@ -100,9 +109,13 @@ def frame_stages(LR: torch.Tensor, p: tracker.TrackerParams, fx, baseline) -> di
             lambda: fast.detect(LR, p.fast_hi, p.fast_lo, cell=cell0, max_keypoints=q0, edge_margin=margin0),
             lambda out: {"flop": counts.detect_flops(B, H, W), "bytes": counts.nbytes(LR, out)}),
         f"patches L0 ({q0}x{P}x{P})": (
-            lambda: patches.extract_windows(LR, x0, y0, P, P), windows([LR], [q0], x0, y0)),
+            with_twins(lambda: patches.extract_windows(LR, x0, y0, P, P),
+                       lambda: patches.extract_windows_ref(LR, x0, y0, P, P), [LR], [q0], x0, y0),
+            windows([LR], [q0], x0, y0)),
         "patches frame (1 launch)": (
-            lambda: patches.extract_windows_levels(win.blurred, win.counts, win.x0, win.y0, P, P),
+            with_twins(lambda: patches.extract_windows_levels(win.blurred, win.counts, win.x0, win.y0, P, P),
+                       lambda: patches.extract_windows_levels_ref(win.blurred, win.counts, win.x0, win.y0, P, P),
+                       win.blurred, win.counts, win.x0, win.y0),
             windows(win.blurred, win.counts, win.x0, win.y0)),
         "orient+BRIEF": (
             orient_brief,
@@ -162,12 +175,14 @@ def track_step_count(trk: tracker.StereoTracker, LR: torch.Tensor, step, needed:
     return {"flop": flop, "bytes": counts.nbytes(LR, trk._state, out)}
 
 
-def run(frames=None, reps: int = 10) -> dict:
+def run(frames=None, reps: int = 10, twins: bool = True) -> dict:
     """The audit: warm-up on the scene's first 8 frames, then every stage
     on frame 9, `reps` calls per timing. `frames`: the scene's (2, H, W)
     uint8 L+R frames, rendered here (or read from the render cache) when
-    None. Returns the JSON line's fields, plus ``outputs``: frame 9's
-    extract_batch keys and stereo results as numpy arrays."""
+    None. `twins`: also time the patch rows' plain versions and library
+    calls (off where a caller counts calls of the plain versions). Returns
+    the JSON line's fields, plus ``outputs``: frame 9's extract_batch keys
+    and stereo results as numpy arrays."""
     _common.require_card("roofline")
     scene = _common.bench_scene(N_FRAMES)
     frames = frames if frames is not None else _common.scene_frames(scene)
@@ -186,6 +201,9 @@ def run(frames=None, reps: int = 10) -> dict:
         m = _common.measure(fn, reps)
         r = {"stage": name, **m, **counts.bound(count(outs[name]), m["device_ms"]),
              "extract_windows_launches": windows}
+        # a kernel row: its plain version's and the library call's device ms
+        for twin, twin_fn in (getattr(fn, "twins", {}) if twins else {}).items():
+            r[f"{twin}_ms"] = timing.primed_device_ms(twin_fn, reps=4 if twin == "plain" else 8)
         rows.append(r)
         print(f"{name:26s} dev={r['device_ms']:8.4f} ms ({r['device_method']}) disp={r['dispatch_ms']:8.3f} "
               f"blk={r['blocked_ms']:8.3f} launches={r['launches']:6d} syncs={r['syncs']:3d} "

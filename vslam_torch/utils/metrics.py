@@ -128,17 +128,25 @@ def count_events(events, wall_ms: float, top: int = 0) -> dict:
     return out
 
 
-def profile_counts(fn, top: int = 0) -> dict:
+def profile_counts(fn, top: int = 0, by_card: bool = False) -> dict:
     """:func:`count_events` of one call of fn() under ``torch.profiler``
     (host ops and CUDA kernels); fn must end with a synchronize, whose own
     sync is counted. ``profiled_wall_ms`` is the call's wall time with the
-    profiler on."""
+    profiler on. `by_card`: also ``device_busy_ms_by_card``, each card's
+    own device time (keyed by its index)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return count_events(prof.key_averages(), wall_ms, top)
+    out = count_events(prof.key_averages(), wall_ms, top)
+    if by_card:
+        busy: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy[e.device_index] = busy.get(e.device_index, 0.0) + getattr(e, "self_device_time_total", 0) / 1e3
+        out["device_busy_ms_by_card"] = dict(sorted(busy.items()))
+    return out
 
 
 def log_event(event: str, stream=None, **fields):
