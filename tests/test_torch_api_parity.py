@@ -3,9 +3,8 @@ its JAX namesake on the CPU on the same numpy inputs: single-image
 extraction (the extraction holds the port's one kernel, extract_windows;
 on the CPU its plain version), the image-space ORB and its gather oracle,
 the single-image pyramid forms, the parallax gate, the split BA rounds,
-and the event line and profiler trace of utils/metrics."""
+and the profiler trace of utils/metrics."""
 
-import io
 import json
 
 import numpy as np
@@ -22,7 +21,6 @@ from vslam_torch.parallel import mesh as tmesh
 from vslam_torch.utils import metrics as tmetrics
 from vslam_tpu.geometry import se3 as jse3
 from vslam_tpu.ops import extract as jext, orb as jorb, pyramid as jpyr, schur as jsch
-from vslam_tpu.utils import metrics as jmetrics
 
 torch.set_num_threads(2)  # xdist runs several workers on one box
 
@@ -280,22 +278,6 @@ def test_local_ba_rounds_match_jax():
     assert (dist <= 1e-4 * np.linalg.norm(ptsj, axis=1)).all(), dist.max()
     np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
     assert abs(float(et) - float(ej)) <= 1e-3 * max(float(ej), 1e-3)
-
-
-def test_log_event_line_matches_jax():
-    """The same JSON line as JAX's log_event, its wall-clock `t` aside."""
-    lines = []
-    for mod in (tmetrics, jmetrics):
-        buf = io.StringIO()
-        mod.log_event("keyframe", stream=buf, slot=3, n=[1, 2], ate=0.25, name="kf")
-        mod.log_event("lost", stream=buf)
-        lines.append(buf.getvalue().splitlines())
-    assert len(lines[0]) == len(lines[1]) == 2
-    for t_line, j_line in zip(*lines):
-        t_rec, j_rec = json.loads(t_line), json.loads(j_line)
-        assert isinstance(t_rec.pop("t"), float) and isinstance(j_rec.pop("t"), float)
-        assert t_rec == j_rec
-        assert list(t_rec) == list(j_rec)  # the same key order too
 
 
 def test_trace_writes_a_readable_trace_and_changes_nothing(tmp_path):

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -491,7 +492,28 @@ class LocalMapperConfig:
     lm_cap: int | None = None
 
 
+def _stage(name: str):
+    """Run the decorated LocalMapper method inside its stage `name`."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def timed(self, *args, **kwargs):
+            with self.metrics.stage(name):
+                return fn(self, *args, **kwargs)
+
+        return timed
+
+    return wrap
+
+
 class LocalMapper:
+    """The local mapper. ``metrics`` times the stages ``run`` (a
+    synchronous local BA, or a global one), ``ba.triangulate``,
+    ``ba.assemble``, ``ba.solve`` (both LM rounds), ``ba.writeback`` and
+    ``ba.host_update``, and on the async path ``ba_join`` and
+    ``ba_worker``; ``counters`` counts the solves, the LM iterations of
+    each round and the ``host_reads``."""
+
     def __init__(
         self,
         world: map_state.WorldMap,
@@ -532,12 +554,16 @@ class LocalMapper:
         self._side: torch.cuda.Stream | None = None
 
     def _two_rounds(self, p: schur.BAProblem, n_slabs: int = 1, stats: list | None = None):
-        """The 2-round BA of a problem: over the mesh when there is one."""
+        """The 2-round BA of a problem: over the mesh when there is one. Its
+        host reads count in ``counters`` (on the async worker too)."""
         cfg = self.cfg
-        return schur.local_ba_two_rounds(
+        reads: list = []
+        out = schur.local_ba_two_rounds(
             p, iters1=cfg.iters_round1, iters2=cfg.iters_round2, mesh=self.mesh, n_slabs=n_slabs,
-            stats=stats,
+            stats=stats, reads=reads,
         )
+        self.counters.inc("host_reads", sum(reads))
+        return out
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.world.device)
@@ -551,6 +577,7 @@ class LocalMapper:
             return np.zeros(0, np.int64)
         return self._finish_triangulation(pend)
 
+    @_stage("ba.triangulate")
     def _dispatch_triangulation(self, kf_slot: int, mono: bool = False):
         """Triangulate and scatter into the device map (host mirrors are
         updated by :meth:`_finish_triangulation`). Returns a pending handle,
@@ -608,6 +635,7 @@ class LocalMapper:
         slots, valid = pend["slots"], pend["valid"]
         Kk = w.keys_per_kf
         blob = pend["blob"].cpu().numpy()
+        self.counters.inc("host_reads")
         soc = blob[:Kk]
         kv = blob[Kk : Kk + (WINDOW - 1) * Kk].reshape(WINDOW - 1, Kk)
         n_new = int(blob[-1])
@@ -621,6 +649,7 @@ class LocalMapper:
         return spawn[:n_new]
 
     # ------------------------------------------------------------------
+    @_stage("ba.assemble")
     def _assemble(self, kf_slot, extra_ids=None):
         """Fixed-shape BAProblem for the covisibility window of `kf_slot`:
         window (temporal order, newest kept) + fixed anchor observers +
@@ -670,6 +699,7 @@ class LocalMapper:
         )
         return p, kf_slots, kf_valid, lm_safe, take, n_live
 
+    @_stage("ba.writeback")
     def _writeback(self, p, p2, kill, kf_slots, kf_valid, lm_safe, take):
         """The map write-back of a solved window (the write-back half of
         the JAX version's _writeback_dispatch): kill coordinates decode
@@ -696,14 +726,14 @@ class LocalMapper:
         re-anchoring info for the tracker. The order is the JAX package's:
         the assembly sees the triangulation only on the device, and the
         triangulation's host side is finished last."""
-        t0 = time.perf_counter()
-        pend = self._dispatch_triangulation(kf_slot, mono=mono)
-        extra = pend["spawn"] if pend is not None else None
-        stage = self._assemble(kf_slot, extra_ids=extra)
-        return self._dispatch_problem(*stage, kf_slot, pend, t0)
+        with self.metrics.stage("run"):
+            pend = self._dispatch_triangulation(kf_slot, mono=mono)
+            extra = pend["spawn"] if pend is not None else None
+            stage = self._assemble(kf_slot, extra_ids=extra)
+            return self._dispatch_problem(*stage, kf_slot, pend)
 
     def _dispatch_problem(
-        self, p, kf_slots, kf_valid, lm_safe, take, n_live, kf_slot, pend, t0, n_slabs: int = 1,
+        self, p, kf_slots, kf_valid, lm_safe, take, n_live, kf_slot, pend, n_slabs: int = 1,
     ) -> dict:
         """Solve an assembled problem (the local window, or the whole map
         for :meth:`run_global`) with the 2-round BA, write it back, then
@@ -711,22 +741,20 @@ class LocalMapper:
         observations. Returns re-anchoring info for the tracker."""
         old_pose = self.world.kf_poses_host[kf_slot].copy()
         iters: list = []
-        p2, err, kill = self._two_rounds(p, n_slabs, stats=iters)
+        with self.metrics.stage("ba.solve"):
+            p2, err, kill = self._two_rounds(p, n_slabs, stats=iters)
         self._writeback(p, p2, kill, kf_slots, kf_valid, lm_safe, take)
-        self.metrics.record("ba_dispatch", time.perf_counter() - t0)
         self.counters.inc("lm_iters_round1", iters[0])
         self.counters.inc("lm_iters_round2", iters[1])
 
-        t1 = time.perf_counter()
-        new_lm_ids = (
-            self._finish_triangulation(pend) if pend is not None else np.zeros(0, np.int64)
-        )
-        r = self._host_update(
-            kf_slot, old_pose, new_lm_ids, p2.poses, kill, take, err, n_live, kf_slots, kf_valid
-        )
-        self.metrics.record("ba_finish", time.perf_counter() - t1)
-        self.metrics.record("run", time.perf_counter() - t0)
-        return r
+        with self.metrics.stage("ba.host_update"):
+            new_lm_ids = (
+                self._finish_triangulation(pend) if pend is not None else np.zeros(0, np.int64)
+            )
+            return self._host_update(
+                kf_slot, old_pose, new_lm_ids, p2.poses, kill, take, err, n_live, kf_slots,
+                kf_valid,
+            )
 
     def _host_update(
         self, kf_slot, old_pose, new_lm_ids, poses, kill, take, err, n_live, kf_slots, kf_valid
@@ -740,6 +768,7 @@ class LocalMapper:
         take_h = take.cpu().numpy()
         err = float(err)
         n_live = int(n_live)
+        self.counters.inc("host_reads", 5)
         O_cap = take_h.shape[0]
         if n_live > O_cap:
             self.counters.inc("obs_rows_truncated", n_live - O_cap)
@@ -791,11 +820,10 @@ class LocalMapper:
         device. Then the solve starts on the worker (:meth:`prefetch`).
         Interleaved tracking steps do not change the BA's result: it reads
         only the problem gathered here."""
-        t0 = time.perf_counter()
         pend = self._dispatch_triangulation(kf_slot, mono=mono)
         extra = pend["spawn"] if pend is not None else None
         stage1 = self._assemble(kf_slot, extra_ids=extra)
-        pending = {"stage1": stage1, "kf_slot": kf_slot, "mono": mono, "tri": pend, "t0": t0}
+        pending = {"stage1": stage1, "kf_slot": kf_slot, "mono": mono, "tri": pend}
         return self.prefetch(pending)
 
     def prefetch(self, pending: dict) -> dict:
@@ -824,13 +852,18 @@ class LocalMapper:
         side stream so the allocator cannot hand their memory out while
         the solve reads it. On the CPU it takes the caller's intra-op
         thread count (a per-thread setting), which fixes how the float
-        reductions split, so the solve gives the sync path's bits."""
+        reductions split, so the solve gives the sync path's bits. The
+        rounds are the span ``ba.solve`` of the log on this thread; their
+        seconds reach ``metrics`` in :meth:`_join`, on the caller's thread,
+        the one thread that writes the stage timer."""
         t0 = time.perf_counter()
         iters: list = []
         done = None
         if ready is None:
             torch.set_num_threads(n_threads)
-            p2, err, kill = self._two_rounds(p, stats=iters)
+            with metrics_mod.span("ba.solve"):
+                p2, err, kill = self._two_rounds(p, stats=iters)
+            solve_s = time.perf_counter() - t0
         else:
             if self._side is None:
                 self._side = torch.cuda.Stream(device=p.poses.device)
@@ -839,11 +872,14 @@ class LocalMapper:
                 side.wait_event(ready)
                 for t in p:
                     t.record_stream(side)
-                p2, err, kill = self._two_rounds(p, stats=iters)
+                t1 = time.perf_counter()
+                with metrics_mod.span("ba.solve"):
+                    p2, err, kill = self._two_rounds(p, stats=iters)
+                solve_s = time.perf_counter() - t1
                 done = torch.cuda.Event()
                 done.record(side)
         return {"p2": p2, "err": err, "kill": kill, "iters": iters, "done": done,
-                "wall": time.perf_counter() - t0}
+                "solve_s": solve_s, "wall": time.perf_counter() - t0}
 
     def _join(self, pending: dict) -> dict:
         """Wait for the worker (an exception there is raised again here),
@@ -852,6 +888,7 @@ class LocalMapper:
         out = pending["solve"].result()
         self.metrics.record("ba_join", time.perf_counter() - t0)
         self.metrics.record("ba_worker", out["wall"])
+        self.metrics.record("ba.solve", out["solve_s"])
         self.counters.inc("lm_iters_round1", out["iters"][0])
         self.counters.inc("lm_iters_round2", out["iters"][1])
         if out["done"] is not None:
@@ -882,7 +919,6 @@ class LocalMapper:
             self._writeback(p, out["p2"], out["kill"], kf_slots, kf_valid, lm_safe, take)
             pending["written"] = (out["p2"].poses, out["kill"], take, out["err"], n_live,
                                   kf_slots, kf_valid)
-            self.metrics.record("ba_dispatch", time.perf_counter() - pending["t0"])
         return pending
 
     def consume_triangulation(self, pending: dict) -> np.ndarray:
@@ -904,21 +940,19 @@ class LocalMapper:
         not done yet), then the host side (triangulation, if not consumed
         early; poses and severed observations). Returns re-anchoring info
         for the tracker."""
-        t0 = time.perf_counter()
         while "stage1" in pending or "stage2" in pending:
             pending = self.advance(pending)
-        new_lm_ids = (
-            self._finish_triangulation(pending["tri"])
-            if pending["tri"] is not None
-            else pending.get("early_lm_ids", np.zeros(0, np.int64))
-        )
-        poses, kill, take, err, n_live, kf_slots, kf_valid = pending.pop("written")
-        r = self._host_update(
-            pending["kf_slot"], pending["old_pose"], new_lm_ids, poses, kill, take, err,
-            n_live, kf_slots, kf_valid,
-        )
-        self.metrics.record("ba_finish", time.perf_counter() - t0)
-        return r
+        with self.metrics.stage("ba.host_update"):
+            new_lm_ids = (
+                self._finish_triangulation(pending["tri"])
+                if pending["tri"] is not None
+                else pending.get("early_lm_ids", np.zeros(0, np.int64))
+            )
+            poses, kill, take, err, n_live, kf_slots, kf_valid = pending.pop("written")
+            return self._host_update(
+                pending["kf_slot"], pending["old_pose"], new_lm_ids, poses, kill, take, err,
+                n_live, kf_slots, kf_valid,
+            )
 
     def close(self):
         """Stop the worker thread (idle after every finish); the next async
@@ -998,9 +1032,11 @@ class LocalMapper:
             self.K, self.baseline, lm_capacity=w.lm_capacity, n_levels=cfg.n_levels,
             scale=cfg.scale, obs_cap=obs_cap,
         )
-        return self._dispatch_problem(
-            p, kf_slots, kf_valid, lm_safe, take, n_live, n - 1, None, t0, n_slabs=n_slabs
+        r = self._dispatch_problem(
+            p, kf_slots, kf_valid, lm_safe, take, n_live, n - 1, None, n_slabs=n_slabs
         )
+        self.metrics.record("run", time.perf_counter() - t0)
+        return r
 
 
 def _round_cap(n: int, lo: int, hi: int) -> int:

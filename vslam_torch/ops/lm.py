@@ -61,6 +61,8 @@ def lm_solve(
     rel_tol: float = 1e-5,
     min_diag: float = 1e-6,
     retract: Callable = se3.retract,
+    stats: list | None = None,
+    reads: list | None = None,
 ) -> LMResult:
     """Minimize 0.5 * ||r(x)||^2 for a batch of B states x with the
     retraction `retract(x, delta)` (default: poses T (B, 4, 4) with the right
@@ -68,7 +70,9 @@ def lm_solve(
     each with the batch as its leading dimension.
 
     residual(x) -> r (B, R); linearize(x) -> (r (B, R), J (B, R, D)) with
-    J = dr/d(delta) at delta = 0. Invalid rows must already be zero."""
+    J = dr/d(delta) at delta = 0. Invalid rows must already be zero.
+    `stats`, when given, receives the iterations the host loop dispatched;
+    `reads`, the device-to-host reads of the done flags it made."""
     lead = state0 if isinstance(state0, torch.Tensor) else state0[0]
     B = lead.shape[0]
     dev = lead.device
@@ -77,9 +81,13 @@ def lm_solve(
     lam = torch.full((B,), lambda0, dtype=torch.float32, device=dev)
     its = torch.zeros((B,), dtype=torch.int64, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    n_iter = n_reads = 0
     for k in range(max_iters):
-        if k and k % _DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
+        if k and k % _DONE_CHECK_EVERY == 0:
+            n_reads += 1
+            if bool(done.all()):
+                break
+        n_iter += 1
         active = ~done
         r, J = linearize(state)
         Jt = J.transpose(-1, -2)
@@ -103,6 +111,10 @@ def lm_solve(
         lam = torch.where(active, lam_new, lam)
         its = its + active.long()
         done = done | (active & done_new)
+    if stats is not None:
+        stats.append(n_iter)
+    if reads is not None:
+        reads.append(n_reads)
     return LMResult(state=state, error=err, iterations=its, lam=lam)
 
 
@@ -212,6 +224,8 @@ def motion_only_ba(
     K: torch.Tensor,
     baseline,
     max_iters: int = 100,
+    stats: list | None = None,
+    reads: list | None = None,
 ):
     """Pose-only LM with frozen landmarks (reference estimatePoseGTSAM,
     no-IMU branch), solved from each of the B initial poses at once. The
@@ -224,7 +238,8 @@ def motion_only_ba(
     least-squares re-solve on the gated set.
 
     Returns (T_opt (B,4,4), chi2 (B,M), inliers (B,M), is_stereo_out (B,M),
-    LMResult of the second pass)."""
+    LMResult of the second pass). `stats` and `reads` as for
+    :func:`lm_solve`, one entry per pass."""
     B = T_init.shape[0]
     weights = torch.sqrt(inv_sigma2)
     chi2_gate = torch.tensor(CHI2_3DOF, dtype=torch.float32)
@@ -257,7 +272,8 @@ def motion_only_ba(
             return (r, J.reshape(B, -1, 6)) if with_jac else r
 
         return lm_solve(
-            lambda T: lin(T, True), lambda T: lin(T, False), T0, max_iters=max_iters
+            lambda T: lin(T, True), lambda T: lin(T, False), T0, max_iters=max_iters,
+            stats=stats, reads=reads,
         )
 
     res1 = solve(T_init, valid_b, st_b, robust=True)
@@ -298,6 +314,8 @@ def motion_only_ba_imu(
     baseline,
     max_iters: int = 100,
     bias_sigma: float = 1e-3,
+    stats: list | None = None,
+    reads: list | None = None,
 ):
     """Visual-inertial pose solve (reference estimatePoseGTSAM, IMU branch,
     src/FeatureTracker.cpp:301-387; vslam_tpu/ops/lm.py:275-379): x0/v0/b0
@@ -313,6 +331,7 @@ def motion_only_ba_imu(
     of the pose prior, carried from the body perturbation to the camera's
     by Ad(T_bc). Returns (T_opt (4, 4), v_opt (3,), bias_opt (6,), chi2
     (M,), inliers (M,), is_stereo_out (M,), LMResult of the second pass).
+    `stats` and `reads` as for :func:`lm_solve`, one entry per pass.
 
     Batched: every argument with a leading S (the preintegration's fields
     too; ImuParams fields floats or (S,) tensors) solves S independent
@@ -324,7 +343,7 @@ def motion_only_ba_imu(
             *(one(x) for x in (T_init, v_init, bias_prev, T_prev_wb, v_prev)),
             type(pre)(*(x[None] for x in pre)), gravity_w[None], imu_params, T_bc[None],
             *(one(x) for x in (pts_w, obs, inv_sigma2, is_stereo, is_right, valid, K)),
-            one(baseline), max_iters=max_iters, bias_sigma=bias_sigma,
+            one(baseline), max_iters=max_iters, bias_sigma=bias_sigma, stats=stats, reads=reads,
         )
         return (*(x[0] for x in out[:6]), out[6])
     from vslam_torch.ops import imu as imu_mod
@@ -398,7 +417,7 @@ def motion_only_ba_imu(
 
         return lm_solve(
             lambda s: lin(s, True), lambda s: lin(s, False), state0,
-            max_iters=max_iters, retract=retract,
+            max_iters=max_iters, retract=retract, stats=stats, reads=reads,
         )
 
     res1 = solve((T_init, v_init, bias_prev), valid, is_stereo, robust=True)

@@ -505,7 +505,7 @@ def _schur_step_sharded(p: BAProblem, lam, mesh, shards: list, shard_slabs: list
 
 def local_ba(
     p: BAProblem, iters: int = 5, lambda0: float = 1e-4, rel_tol: float = 1e-5,
-    mesh=None, n_slabs: int = 1, stats: list | None = None,
+    mesh=None, n_slabs: int = 1, stats: list | None = None, reads: list | None = None,
 ):
     """Up to `iters` LM iterations; returns (problem, final error, final
     lambda). GTSAM accept/reject with relativeErrorTol: done when an
@@ -516,7 +516,8 @@ def local_ba(
     (:func:`_schur_step_sharded`; the mesh size must divide the
     observation rows, and n_slabs x the mesh size the landmark slots),
     the accept/reject on the summed error. `stats`, when given, receives
-    the iteration count."""
+    the iteration count; `reads`, the device-to-host reads made (the done
+    flag, and the count for `stats`)."""
     err = ba_error(p, mesh)
     dev = err.device
     lam = torch.tensor(lambda0, dtype=torch.float32, device=dev)
@@ -532,9 +533,12 @@ def local_ba(
             )
         # the rows' slab layout per shard; it holds for the whole round
         shard_slabs = [_slabs(q, n_slabs) for _, q in _shards(p, mesh)]
+    n_reads = 0
     for i in range(iters):
-        if i and i % _DONE_CHECK_EVERY == 0 and bool(done):
-            break
+        if i and i % _DONE_CHECK_EVERY == 0:
+            n_reads += 1
+            if bool(done):
+                break
         if mesh is None:
             dp, dl = _schur_step(p, lam, slabs)
         else:
@@ -554,38 +558,43 @@ def local_ba(
         n_iter = n_iter + active.long()
     if stats is not None:
         stats.append(int(n_iter))
+        n_reads += 1
+    if reads is not None:
+        reads.append(n_reads)
     return p, err, lam
 
 
 def local_ba_two_rounds(
     p: BAProblem, iters1: int = 5, iters2: int = 10,
-    mesh=None, n_slabs: int = 1, stats: list | None = None,
+    mesh=None, n_slabs: int = 1, stats: list | None = None, reads: list | None = None,
 ):
     """The reference's 2-round schedule (src/OptimizationBA.cpp:543-873):
     :func:`local_ba_round1` then :func:`local_ba_round2`; `mesh` and
     `n_slabs` as for :func:`local_ba` (the sweep is per observation, so it
     needs no collective). Returns (problem, error, kill (O,) bool)."""
-    kw = dict(mesh=mesh, n_slabs=n_slabs, stats=stats)
+    kw = dict(mesh=mesh, n_slabs=n_slabs, stats=stats, reads=reads)
     return local_ba_round2(local_ba_round1(p, iters1, **kw), iters2, **kw)
 
 
 def local_ba_round1(
     p: BAProblem, iters1: int = 5, *, mesh=None, n_slabs: int = 1, stats: list | None = None,
+    reads: list | None = None,
 ) -> BAProblem:
     """Round 1 LM, then the chi-squared outlier sweep: the problem with the
     swept rows out of `obs_valid`. The first half of
     :func:`local_ba_two_rounds`; lambda starts at lambda0."""
-    p1, _, _ = local_ba(p, iters=iters1, mesh=mesh, n_slabs=n_slabs, stats=stats)
+    p1, _, _ = local_ba(p, iters=iters1, mesh=mesh, n_slabs=n_slabs, stats=stats, reads=reads)
     return p1._replace(obs_valid=p1.obs_valid & (obs_chi2(p1) < CHI2_THR))
 
 
 def local_ba_round2(
     p1: BAProblem, iters2: int = 10, *, mesh=None, n_slabs: int = 1, stats: list | None = None,
+    reads: list | None = None,
 ):
     """Round 2 LM (lambda restarts at lambda0), then the final kill mask:
     (problem, error, kill (O,) bool). The second half of
     :func:`local_ba_two_rounds`."""
-    p2, err, _ = local_ba(p1, iters=iters2, mesh=mesh, n_slabs=n_slabs, stats=stats)
+    p2, err, _ = local_ba(p1, iters=iters2, mesh=mesh, n_slabs=n_slabs, stats=stats, reads=reads)
     return p2, err, p2.obs_valid & (obs_chi2(p2) >= CHI2_THR)
 
 

@@ -38,7 +38,9 @@ class BatchedStereoFrontend:
     step. Each MonoTracker's bootstrap runs unbatched through its own
     track() (host-driven, per-sequence event logic); the batch starts once
     every sequence has initialized. ``metrics`` times the batched frames
-    (stage ``track``)."""
+    (stage ``track``, and the frame step's stages, see
+    ``tracker.track_step_batch``) and ``counters`` counts the step's radius
+    attempts, LM iterations and host reads."""
 
     def __init__(self, trackers: list):
         if not trackers:
@@ -73,6 +75,7 @@ class BatchedStereoFrontend:
         self._const_b = None
         self._const_ids = None
         self.metrics = metrics_mod.StageTimer()
+        self.counters = metrics_mod.Counters()
 
     def _imu_const_b(self):
         consts = [t._imu_const for t in self.trackers]
@@ -143,7 +146,7 @@ class BatchedStereoFrontend:
 
         t0 = ts[0]
         p = t0.params
-        with self.metrics.stage("track"):
+        with self.metrics.stage("track", frame=t0.frame_idx):
             for t in ts:
                 t.counters.inc("frames")
             LR = self._frames(frames)
@@ -159,7 +162,7 @@ class BatchedStereoFrontend:
             new_state, outputs = tracker_mod.track_step_batch(
                 LR, tracker_mod.stack_trees([t._state for t in ts]), radii, p.refine_radius,
                 t0._desc_thr, t0._ratio, self._K_b, self._bl_b, t0.scale_factors, p,
-                t0.width, t0.height, imu=imu_arg,
+                t0.width, t0.height, imu=imu_arg, timer=self.metrics, counters=self.counters,
             )
             shared = [outputs["blob"], None]  # one host copy for all S
             for s, t in enumerate(ts):

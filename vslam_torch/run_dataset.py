@@ -224,8 +224,11 @@ def _run(args, stop: list) -> dict:
             viz.export_ply(args.ply, system.world, poses, active_ids=system.tracker.active_ids)
             print(f"ply -> {args.ply}")
     print(f"done: {n} frames in {wall:.1f}s ({n / max(wall, 1e-9):.1f} fps) -> {args.out}")
-    stages = system.tracker.metrics.summary() | system.mapper.metrics.summary()
-    counts = system.tracker.counters.summary() | system.mapper.counters.summary()
+    stages = (system.metrics.summary() | system.tracker.metrics.summary()
+              | system.mapper.metrics.summary())
+    counts = {f"{who}.{k}": v for who, c in (("tracker", system.tracker.counters),
+                                             ("mapper", system.mapper.counters))
+              for k, v in c.summary().items()}
     if stages:
         print("stages:", json.dumps(stages))
         print("counters:", json.dumps(counts))

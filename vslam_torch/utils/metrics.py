@@ -1,7 +1,12 @@
-"""Stage timer, counters, a profiler trace and JSON event lines (port of
+"""Stage timer, counters, a span log and a profiler trace (port of
 vslam_tpu/utils/metrics.py).
 
-The tracker records per-stage wall time and named counts here.
+The tracker, the local mapper and the facade record per-stage wall time
+and named counts here. The span log (:func:`span_log`, off by default)
+keeps one :class:`Span` per closed stage, on ``time.perf_counter_ns``'s
+clock, with its parent and the frame it serves, until :func:`take_spans`
+hands them out. While a ``torch.profiler`` runs, every stage is also a
+``record_function`` range, so a trace shows the program's stages.
 :func:`trace` is the counterpart of the JAX module's ``jax.profiler``
 trace: a ``torch.profiler`` timeline written as a Chrome / Perfetto JSON.
 """
@@ -10,16 +15,107 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import json
+import itertools
 import os
-import sys
+import threading
 import time
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as _profiler
+
+
+class Span(NamedTuple):
+    """One closed stage of the span log. `id` counts the spans in the order
+    they opened since the log was switched on; `parent` is the id of the
+    span that was open around it on the same thread (-1: none); `frame` is
+    the index of the frame the span serves, counted from 0 by each
+    tracker (-1: none, as on the async mapper's worker thread)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    frame: int
+    id: int
+
+
+_log: list | None = None  # the closed spans while the log is on
+_lock = threading.Lock()  # the log's switch, appends and takes
+_ids = itertools.count()
+_open = threading.local()  # per thread: the stack of open (id, frame)
+
+
+def span_log(on: bool):
+    """Switch the process-wide span log on (empty) or off (dropped)."""
+    global _log, _ids
+    with _lock:
+        _ids = itertools.count()
+        _log = [] if on else None
+
+
+def take_spans() -> list[Span]:
+    """The spans closed since the log was switched on or last taken, in
+    the order they opened; the log stays as it was switched."""
+    global _log
+    with _lock:
+        if _log is None:
+            return []
+        out, _log = _log, []
+    return sorted(out, key=lambda s: s.id)
+
+
+def _enter(name: str, frame: int | None):
+    """Open a span: push it on this thread's stack when the log is on,
+    enter a ``record_function`` range when a profiler runs."""
+    entry = None
+    if _log is not None:
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        parent, up_frame = stack[-1] if stack else (-1, -1)
+        entry = (next(_ids), up_frame if frame is None else frame, parent)
+        stack.append(entry[:2])
+    rf = None
+    if _profiler._is_profiler_enabled:
+        rf = _profiler.record_function(name)
+        rf.__enter__()
+    return entry, rf, time.perf_counter_ns()
+
+
+def _exit(name: str, state) -> float:
+    """Close a span opened by :func:`_enter`; returns its seconds."""
+    entry, rf, t0 = state
+    t1 = time.perf_counter_ns()
+    if rf is not None:
+        rf.__exit__(None, None, None)
+    if entry is not None:
+        _open.stack.pop()
+        sid, frame, parent = entry
+        with _lock:
+            if _log is not None:
+                _log.append(Span(name, t0, t1, parent, frame, sid))
+    return (t1 - t0) / 1e9
+
+
+@contextlib.contextmanager
+def span(name: str, frame: int | None = None):
+    """The block as the span `name` of the log (and a profiler range),
+    timed by no stage timer."""
+    if _log is None and not _profiler._is_profiler_enabled:
+        yield
+        return
+    state = _enter(name, frame)
+    try:
+        yield
+    finally:
+        _exit(name, state)
 
 
 class StageTimer:
-    """Accumulate wall times per named stage; cheap enough for per-frame use."""
+    """Accumulate wall times per named stage; cheap enough for per-frame use.
+    One thread writes a timer: the async mapper's worker hands its seconds
+    to the caller's thread (``LocalMapper._join``)."""
 
     def __init__(self, window: int = 200):
         self._samples: dict[str, collections.deque] = collections.defaultdict(
@@ -29,12 +125,23 @@ class StageTimer:
         self._counts: dict[str, int] = collections.defaultdict(int)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
+    def stage(self, name: str, frame: int | None = None):
+        """Time the block as stage `name`. While the span log is on, the
+        block is also a :class:`Span` serving `frame` (default: the frame
+        of the span around it); while a profiler runs, a
+        ``record_function`` range."""
+        if _log is None and not _profiler._is_profiler_enabled:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.record(name, time.perf_counter() - t0)
+            return
+        state = _enter(name, frame)
         try:
             yield
         finally:
-            self.record(name, time.perf_counter() - t0)
+            self.record(name, _exit(name, state))
 
     def record(self, name: str, dt: float):
         self._samples[name].append(dt)
@@ -62,13 +169,23 @@ class StageTimer:
         return out
 
 
+def maybe_stage(timer: StageTimer | None, name: str):
+    """``timer.stage(name)``, or a null context without a timer."""
+    return timer.stage(name) if timer is not None else contextlib.nullcontext()
+
+
 class Counters:
+    """Named counts; ``inc`` may be called from several threads (the async
+    mapper's worker counts its host reads)."""
+
     def __init__(self):
         self._c: dict[str, int] = collections.defaultdict(int)
+        self._lock = threading.Lock()
         self._t0 = time.perf_counter()
 
     def inc(self, name: str, by: int = 1):
-        self._c[name] += by
+        with self._lock:
+            self._c[name] += by
 
     def get(self, name: str) -> int:
         return self._c[name]
@@ -147,9 +264,3 @@ def profile_counts(fn, top: int = 0, by_card: bool = False) -> dict:
                 busy[e.device_index] = busy.get(e.device_index, 0.0) + getattr(e, "self_device_time_total", 0) / 1e3
         out["device_busy_ms_by_card"] = dict(sorted(busy.items()))
     return out
-
-
-def log_event(event: str, stream=None, **fields):
-    """One JSON line per event: structured logging the reference never had."""
-    rec = {"t": round(time.time(), 3), "event": event} | fields
-    print(json.dumps(rec), file=stream or sys.stdout, flush=True)
