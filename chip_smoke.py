@@ -24,7 +24,12 @@ own line:
    timed: device time on a primed stream and host time per call
    (vslam_torch/kernels/timing.py), against the plain version, one
    advanced-indexing call per level (the library yardstick) and the bound
-   from the bytes the frame must move;
+   from the bytes the frame must move. The motion-only LM kernel
+   (motion_only_lm.cu) at the tracker's KITTI 00 shape (the two starts,
+   B=2, over 4096 active landmarks; kernels/timing.lm_problem): one launch
+   (rc 0), held to its plain version on the card (poses within 1e-3),
+   then its device ms on a primed stream, host ms per call, device us per
+   LM iteration and the plain version's wall ms;
 4. main path: StereoTracker (no mapper) over 16 frames of the synthetic
    EuRoC-geometry scene at the bench configuration (752x480, seed 3,
    1024 features, 8 levels, 4096 active landmarks) on the card; kernel
@@ -239,6 +244,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -489,6 +495,42 @@ def phase_kernels_loop(scene, dev, smi) -> dict:
     return {"max_abs_err": max(errs), **t}
 
 
+# The LM kernel against its plain version on phase 3's one fixed problem
+# (seed 0): both converge in the same iterations, so they differ by the
+# rounding of their sums in different orders (poses 4.8e-7 apart on the
+# H100). A pose 1e-5 off moves a pixel by under 0.01 px and a chi^2 near
+# the gate by under 0.05, so rows within 0.1 of it may classify apart;
+# float32 sums of ~3,000 rows in two orders agree to ~1e-6 relative.
+LM_POSE_TOL, LM_COST_RTOL, LM_CHI2_MARGIN = 1e-5, 1e-4, 0.1
+
+
+def phase_kernels_lm(smi) -> dict:
+    """The motion-only LM kernel at the tracker's KITTI 00 shape: one
+    launch, against the plain version on the same inputs (poses, final
+    cost, inlier and stereo masks away from the gate), then timed, with its
+    bound."""
+    args, _ = timing.lm_problem(B=2, M=4096, device="cuda")
+    n0, its = lm.LAUNCHES, []
+    T, chi2, inl, st, res = lm.motion_only_ba(*args, stats=its)
+    launches = lm.LAUNCHES - n0
+    its_r = []
+    T_r, chi2_r, inl_r, st_r, res_r = lm.motion_only_ba_ref(*args, stats=its_r)
+    torch.cuda.synchronize()
+    pose_err = float((T - T_r).abs().max())
+    cost_rel = float(((res.error - res_r.error).abs() / res_r.error).max())
+    near = (timing.lm_near_gate(args, T_r, chi2_r, LM_CHI2_MARGIN)
+            | timing.lm_near_gate(args, T, chi2, LM_CHI2_MARGIN))
+    differ = int(((inl != inl_r) | (st != st_r))[~near].sum())
+    if launches != 1 or pose_err > LM_POSE_TOL or cost_rel > LM_COST_RTOL or differ:
+        raise AssertionError(f"motion_only_lm: {launches} launches; against the plain version poses {pose_err}, "
+                             f"cost {cost_rel} relative, {differ} rows classified apart away from the gate")
+    t = timing.lm_table(args)
+    say("kernel", name="motion_only_lm", shape="KITTI 00 tracker two starts, B=2, A=4096", card=smi, rc=0,
+        pose_err=pose_err, cost_rel_err=cost_rel, rows_near_gate=int(near.sum()), rows_differing_elsewhere=differ,
+        plain_iterations=its_r, **t)
+    return t
+
+
 def _agreement():
     """A check that a kernel's output is torch.equal to its plain version,
     and the list of the max abs errors it has seen."""
@@ -548,25 +590,27 @@ def phase_main_path(scene) -> tuple[int, list, float]:
 
     torch.cuda.reset_peak_memory_stats()
     with _plain_calls() as plain_devices:
-        patches.LAUNCHES = 0
+        patches.LAUNCHES = lm.LAUNCHES = 0
         t0 = time.perf_counter()
         trk, poses = _run_tracker(scene, frames, dev)
         torch.cuda.synchronize()
         track_s = time.perf_counter() - t0
-        launches, plain_calls = patches.LAUNCHES, len(plain_devices)
+        launches, lm_launches, plain_calls = patches.LAUNCHES, lm.LAUNCHES, len(plain_devices)
 
     want = N_FRAMES  # one launch per stereo frame, every level
     if launches != want:
         raise AssertionError(f"extract_windows launched {launches} times, want {want}")
+    _check_lm_launches(lm_launches, trk.counters)
     if plain_calls:
-        raise AssertionError(f"the plain window gather ran {plain_calls} times ({plain_devices})")
+        raise AssertionError(f"plain versions ran {plain_calls} times ({plain_devices})")
     if poses.shape != (N_FRAMES, 4, 4) or not np.isfinite(poses).all():
         raise AssertionError(f"bad trajectory {poses.shape}")
     ate = trajectory.ate_rmse(poses, scene.poses_c2w[:N_FRAMES], align=False)
     stages = trk.metrics.summary()
     say("main_path", frames=N_FRAMES, fps=N_FRAMES / track_s, track_s=track_s,
         render_s=render_s, keyframes=len(trk.new_kf_slots), landmarks=trk.world.n_landmarks,
-        ate_m=ate, extract_windows_launches=launches, plain_calls_on_card=plain_calls,
+        ate_m=ate, extract_windows_launches=launches, motion_only_lm_launches=lm_launches,
+        radius_attempts=trk.counters.get("radius_attempts"), plain_calls_on_card=plain_calls,
         track_p50_ms=stages["track"]["p50_ms"], track_p90_ms=stages["track"]["p90_ms"],
         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
     if not ate <= ATE_GATE_M:
@@ -642,27 +686,59 @@ def _run_system(sys_, frames, imu_bins=None):
     return sys_.trajectory()
 
 
+def _check_lm_launches(launches: int, counters):
+    """On the card every radius attempt's pose solve is one launch of the
+    motion-only LM kernel, and nothing else launches it in a run with no
+    relocalization."""
+    attempts, solves = counters.get("radius_attempts"), counters.get("lm_kernel_solves")
+    if not launches == solves == attempts > 0:
+        raise AssertionError(f"motion_only_lm launched {launches} times, {solves} kernel solves, "
+                             f"{attempts} radius attempts")
+
+
 @contextlib.contextmanager
 def _plain_calls():
-    """Count every call of the window gather's plain versions (the device
-    of the corners each got) while the block runs: on the card the main
-    path must never reach them."""
-    plain = {n: getattr(patches, n) for n in ("extract_windows_ref", "extract_windows_levels_ref")}
-    devices = []
+    """Count every call of the card kernels' plain versions while the block
+    runs: the window gather's (the device of the corners each got) and, on
+    CUDA tensors, the motion-only pose solve's (``lm.motion_only_ba_ref``,
+    and ``lm.lm_solve`` outside the IMU solve, which has no kernel; as
+    "<name>:cuda"). On the card the main path must never reach them."""
+    devices, in_imu = [], threading.local()
 
-    def counted(fn):
+    def window(fn):
         def run(*args):
             devices.append(args[2].device.type)
             return fn(*args)
         return run
 
-    for n, fn in plain.items():
-        setattr(patches, n, counted(fn))
+    def pose_solve(name, fn):
+        def run(*args, **kwargs):
+            x = args[0] if name == "motion_only_ba_ref" else args[2]
+            if not getattr(in_imu, "depth", 0) and torch.is_tensor(x) and x.is_cuda:
+                devices.append(f"{name}:cuda")
+            return fn(*args, **kwargs)
+        return run
+
+    def imu_solve(fn):
+        def run(*args, **kwargs):
+            in_imu.depth = getattr(in_imu, "depth", 0) + 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                in_imu.depth -= 1
+        return run
+
+    watched = [(patches, n, window) for n in ("extract_windows_ref", "extract_windows_levels_ref")]
+    watched += [(lm, n, lambda fn, n=n: pose_solve(n, fn)) for n in ("motion_only_ba_ref", "lm_solve")]
+    watched += [(lm, "motion_only_ba_imu", imu_solve)]
+    plain = [(mod, n, getattr(mod, n)) for mod, n, _ in watched]
+    for (mod, n, wrap), (_, _, fn) in zip(watched, plain):
+        setattr(mod, n, wrap(fn))
     try:
         yield devices
     finally:
-        for n, fn in plain.items():
-            setattr(patches, n, fn)
+        for mod, n, fn in plain:
+            setattr(mod, n, fn)
 
 
 def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system.VSlamSystem, float]:
@@ -685,19 +761,20 @@ def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system
     local_mapper.schur.local_ba_two_rounds = recording
     try:
         with _plain_calls() as plain_devices:
-            patches.LAUNCHES = 0
+            patches.LAUNCHES = lm.LAUNCHES = 0
             t0 = time.perf_counter()
             poses = _run_system(sys_, frames)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
-            launches, plain_calls = patches.LAUNCHES, len(plain_devices)
+            launches, lm_launches, plain_calls = patches.LAUNCHES, lm.LAUNCHES, len(plain_devices)
     finally:
         local_mapper.schur.local_ba_two_rounds = solve
 
     if launches != SYS_FRAMES:
         raise AssertionError(f"extract_windows launched {launches} times, want {SYS_FRAMES}")
+    _check_lm_launches(lm_launches, sys_.tracker.counters)
     if plain_calls:
-        raise AssertionError(f"the plain window gather ran {plain_calls} times ({plain_devices})")
+        raise AssertionError(f"plain versions ran {plain_calls} times ({plain_devices})")
     if poses.shape != (SYS_FRAMES, 4, 4) or not np.isfinite(poses).all():
         raise AssertionError(f"bad trajectory {poses.shape}")
     m = sys_.mapper
@@ -718,7 +795,8 @@ def phase_system(scene, tracker_ate) -> tuple[int, list, schur.BAProblem, system
         keyframes=len(sys_.tracker.new_kf_slots), landmarks=sys_.world.n_landmarks,
         killed_obs=c.get("obs_killed"), obs_rows_truncated=c.get("obs_rows_truncated"),
         ate_m=ate, tracker_only_ate_m_phase4=tracker_ate,
-        extract_windows_launches=launches, plain_calls_on_card=plain_calls,
+        extract_windows_launches=launches, motion_only_lm_launches=lm_launches,
+        radius_attempts=sys_.tracker.counters.get("radius_attempts"), plain_calls_on_card=plain_calls,
         peak_mem_mb=peak_mb, repeat_bit_identical=bool(np.array_equal(poses, repeat)))
     if not ate <= ATE_GATE_M:
         raise AssertionError(f"system ATE {ate} m > {ATE_GATE_M} m")
@@ -2504,6 +2582,7 @@ def run() -> int:
     t_kitti = phase_kernels_kitti(torch.device("cuda"), smi)
     t_kitti00 = phase_kernels_kitti00(torch.device("cuda"), smi)
     t_mono = phase_kernels_mono(torch.device("cuda"), smi)
+    t_lm = phase_kernels_lm(smi)
     launches_trk, pairs, ate_trk = phase_main_path(scene)
     tools_frames = _render_async(tool_common.bench_scene(roofline.N_FRAMES), roofline.N_FRAMES)
     phase_card_vs_cpu(scene, pairs)
@@ -2566,6 +2645,13 @@ def run() -> int:
             "bound_ms", "library_ms")} for name, tab in (("kitti", t_kitti), ("mono", t_mono),
                                                          ("loop", t_loop), ("kitti00", t_kitti00),
                                                          ("dryrun", t_dryrun), *t_batch.items())},
+    }, {
+        "name": "motion_only_lm",
+        "route": "cuda",
+        "source": "vslam_torch/kernels/csrc/motion_only_lm.cu",
+        "replaces": "vslam_tpu/ops/lm.py lm_solve + motion_only_ba (lax.while_loop; no Pallas kernel)",
+        "bound_by": "bound_ms: the rows' f32 operations on one SM a problem; above it, the serial iteration chain",
+        **t_lm,
     }]}
     print(smi)
     print(json.dumps(report))

@@ -1,5 +1,8 @@
 """Tests of the port that need a CUDA device: the hand-written kernels
-against their plain PyTorch versions, a short tracker run and a short
+against their plain PyTorch versions (the window kernel, and the
+motion-only LM kernel at the tracker's, a batch's and relocalization's
+shapes), the benchmark's pose-solve controls on the card's LM, a short
+tracker run and a short
 VSlamSystem run on the card against the same runs on the CPU, the local
 BA's bit-reproducibility on the card, the async mapper's worker thread and
 side stream against the sync mapper, a short STEREO_IMU run, a short
@@ -23,8 +26,10 @@ import pytest
 import torch
 
 from vslam_torch.geometry import se3
+from vslam_torch.kernels import timing
 from vslam_torch.models import map_state, reloc, system, tracker
-from vslam_torch.ops import extract, orb, patches, pyramid, schur
+from vslam_torch.ops import extract, lm, orb, patches, pyramid, schur
+from vslam_torch.tools import counts
 from vslam_torch.utils import synthetic
 from vslam_torch.utils.config import ConfigFile
 
@@ -219,6 +224,162 @@ def test_extract_launches_the_kernel_once_and_matches_the_image_space_orb(dev):
     assert torch.equal(packed, keys.packed[sel]) and torch.equal(signed, keys.desc[sel])
 
 
+# The motion-only LM kernel against its plain version on the same inputs.
+# Tolerances: a pass stops at a relative cost decrease under 1e-5, and the
+# two versions sum their rows in different orders, so they may stop at
+# poses up to 1e-3 apart (entries of T; metres for the translation) with
+# final costs 1e-3 apart (relative). Iterations agree within 1 a pass until
+# the pass reaches that resolution: from the first iteration whose relative
+# cost change is under 1e-5 in the plain version, whether a step lowers
+# the cost is decided by the rounding of the sums, and the versions may run
+# different tails of rejected and tiny steps (seen: 7 against 2 at poses
+# 5e-6 apart). A pose 1e-3 off moves a pixel of a point 4 m away by up to
+# 0.18 px, a chi^2 near the 7.815 gate by up to ~1: rows whose chi^2 lies
+# within 1.0 of the gate may classify differently (at a solved pose the
+# generated rows lie far from it: at most 1% of them may be that close).
+LM_POSE_TOL, LM_COST_RTOL, LM_CHI2_MARGIN, LM_REL_TOL = 1e-3, 1e-3, 1.0, 1e-5
+
+LM_CASES = {
+    # the tracker's two starts at KITTI 00's active set: shared rows, K, baseline
+    "tracker two starts B=2 A=4096": (dict(B=2, M=4096), 100),
+    # run_batch's S=8 sequences: per-problem rows, K and baseline
+    "per problem B=8": (dict(B=8, M=1024, per_problem=True, seed=1), 100),
+    "rows behind the camera": (dict(B=2, M=2048, behind=0.1, seed=2), 100),
+    # 90% outliers: the sweep keeps under a quarter, so the guard keeps the valid set
+    "enough guard": (dict(B=2, M=2048, outliers=0.9, seed=3), 100),
+    "max_iters=0": (dict(B=2, M=4096, seed=4), 0),
+}
+
+
+def _plain_passes(args, max_iters):
+    """The plain version, and per LM pass its (B,) iterations and the first
+    iteration whose relative cost change was under LM_REL_TOL (max_iters +
+    1 where none was), from the costs its residual calls returned."""
+    passes, real = [], lm.lm_solve
+
+    def watched(linearize, residual, state0, **kw):
+        costs = []
+
+        def res(x):
+            r = residual(x)
+            costs.append(0.5 * torch.sum(r * r, dim=-1))
+            return r
+
+        out = real(linearize, res, state0, **kw)
+        err, floor = costs[0], torch.full_like(out.iterations, max_iters + 1)
+        for k, c in enumerate(costs[1:], start=1):  # trial k's cost; accepted when lower
+            rel = (err - c).abs() / err.clamp(min=1e-12)
+            floor = torch.where((rel < LM_REL_TOL) & (floor > max_iters), k, floor)
+            err = torch.minimum(err, c)
+        passes.append((out.iterations, floor))
+        return out
+
+    lm.lm_solve = watched
+    try:
+        return lm.motion_only_ba_ref(*args, max_iters=max_iters), passes
+    finally:
+        lm.lm_solve = real
+
+
+def _lm_compare(args, max_iters):
+    """One kernel call (one launch, bit-identical when repeated) against the
+    plain version on the card; returns both results."""
+    n0, its = lm.LAUNCHES, []
+    out = lm.motion_only_ba(*args, max_iters=max_iters, stats=its)
+    torch.cuda.synchronize()
+    assert lm.LAUNCHES == n0 + 1
+    again = lm.motion_only_ba(*args, max_iters=max_iters)
+    for a, b in zip(out[:4] + tuple(out[4][1:]), again[:4] + tuple(again[4][1:])):
+        assert torch.equal(a, b)
+    ref, passes = _plain_passes(args, max_iters)
+    T, chi2, inl, st, res = out
+    T_r, chi2_r, inl_r, st_r, res_r = ref
+    assert float((T - T_r).abs().max()) <= LM_POSE_TOL
+    assert torch.allclose(res.error, res_r.error, rtol=LM_COST_RTOL, atol=0)
+    for k, (n, floor) in zip(its, passes, strict=True):
+        assert bool((((k - n).abs() <= 1) | (torch.minimum(k, n) >= floor - 1)).all()), (k, n, floor)
+    assert torch.equal(res.iterations, its[1])
+    near = (timing.lm_near_gate(args, T_r, chi2_r, LM_CHI2_MARGIN)
+            | timing.lm_near_gate(args, T, chi2, LM_CHI2_MARGIN))
+    if max_iters:  # an unsolved pose leaves the chi^2 anywhere
+        assert int(near.sum()) <= 0.01 * near.numel()
+    assert torch.equal(inl[~near], inl_r[~near]) and torch.equal(st[~near], st_r[~near])
+    return out, ref
+
+
+@pytest.mark.parametrize("case", list(LM_CASES))
+def test_motion_only_lm_kernel_equals_plain_version(dev, case):
+    kw, max_iters = LM_CASES[case]
+    args, T_true = timing.lm_problem(device=dev, **kw)
+    (T, chi2, inl, st, res), (_, _, inl_r, _, res_r) = _lm_compare(args, max_iters)
+    valid, st_in = args[6], args[4]
+    if max_iters == 0:  # the start comes back as it went in
+        assert torch.equal(T, args[0]) and int(res.iterations.max()) == 0
+        return
+    if case != "enough guard":
+        assert float((T - T_true).abs().max()) < 0.05
+    if case == "rows behind the camera":
+        pc = se3.transform_points(se3.inverse(T), args[1][None])
+        assert not bool((inl & (pc[..., 2] <= 0.05)).any()) and bool((pc[..., 2] <= 0.05).any())
+    elif case == "enough guard":
+        assert bool((inl_r.sum(-1) < valid.sum(-1) // 4).all())  # the sweep left too few
+    else:
+        assert bool((st_in & valid & inl & ~st).any())  # some stereo rows demoted
+
+
+def test_motion_only_lm_kernel_on_relocalization_call(dev):
+    """reloc._verify_candidate's form: one problem, unit weights, no stereo
+    or right-only rows, K on the card, a float baseline, max_iters 50."""
+    (T0, pts, obs, _, st, _, valid, K, _), _ = timing.lm_problem(B=1, M=2048, seed=5, device=dev)
+    none = torch.zeros_like(st)
+    obs = obs.clone()
+    obs[:, 2] = -1.0
+    args = (T0, pts, obs, torch.ones_like(obs[:, 0]), none, none, valid, K, 0.0)
+    _lm_compare(args, 50)
+
+
+def test_pose_solve_controls_still_change_the_card_poses(dev):
+    """perfbench's controls patch lm.motion_only_ba: on the card (the
+    kernel's path) pose_solve_skipped still returns the prediction (frame
+    1 stays at frame 0's pose), and rig_centre still moves each solved pose
+    half the baseline along the camera's x (a solve: the kernel's pose
+    times the offset; the tracker: poses off the plain run's)."""
+    from perfbench import control
+
+    scene = synthetic.make_scene(n_frames=3, n_points=400, width=320, height=240, fps=10.0, seed=7)
+    params = tracker.TrackerParams(n_features=512, n_levels=4, active_size=1024, kf_min_stereo=60)
+
+    def run():
+        world = map_state.WorldMap(lm_capacity=8192, kf_capacity=64, keys_per_kf=512, device=dev)
+        trk = tracker.StereoTracker(scene.K, scene.baseline, 320, 240, world, params, device=dev)
+        n0 = lm.LAUNCHES
+        for f in range(3):
+            trk.track(scene.render(f), scene.render(f, right=True))
+        poses = np.asarray(trk.trajectory())
+        c = trk.counters
+        assert c.get("lm_kernel_solves") == c.get("radius_attempts") == lm.LAUNCHES - n0 > 0
+        return poses
+
+    plain = run()
+    with control.pose_solve_skipped():
+        skipped = run()
+    with control.rig_centre({"system": {"Camera": {"bl": scene.baseline}}}):
+        shifted = run()
+    assert np.abs(plain[1][:3, 3] - plain[0][:3, 3]).max() > 0.01  # the scene moves
+    np.testing.assert_array_equal(skipped[1], skipped[0])
+    assert np.abs(shifted[1:, :3, 3] - plain[1:, :3, 3]).max() > 0.01
+    args, _ = timing.lm_problem(B=2, M=1024, device=dev)
+    T = lm.motion_only_ba(*args)[0]
+    cfg = {"system": {"Camera": {"bl": 0.537}}}
+    with control.rig_centre(cfg):
+        n0 = lm.LAUNCHES
+        T_shift = lm.motion_only_ba(*args)[0]
+        assert lm.LAUNCHES == n0 + 1
+    d = torch.eye(4, device=dev)
+    d[0, 3] = 0.5 * 0.537
+    assert torch.allclose(T_shift, T @ d, atol=1e-6, rtol=0)
+
+
 def test_tracker_on_card_matches_cpu(dev):
     """Five frames of the small tracker scene on the card and on the CPU
     (plain versions): the same keyframes, poses within 1e-4 m."""
@@ -234,6 +395,10 @@ def test_tracker_on_card_matches_cpu(dev):
         runs[d.type] = (trk, trk.trajectory(), patches.LAUNCHES - n0)
     (tg, pg, launches), (tc, pc, cpu_launches) = runs["cuda"], runs["cpu"]
     assert launches == 5 and cpu_launches == 0  # one launch per stereo frame
+    # every pose solve on the card took the LM kernel, none on the CPU
+    cg, cc = tg.counters, tc.counters
+    assert cg.get("lm_kernel_solves") == cg.get("radius_attempts") > 0 == cc.get("lm_kernel_solves")
+    assert 0 < cg.get("lm_iters") <= cc.get("lm_iters") + 2 * cc.get("radius_attempts")
     assert tg.new_kf_slots == tc.new_kf_slots
     np.testing.assert_allclose(pg, pc, atol=1e-4, rtol=0)
 

@@ -28,11 +28,21 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
 # entry point -> argument types; restype is always int (a cudaError_t)
 SIGNATURES = {
     # level table (host int64 rows: img, h, w, first), n_levels, x0, y0,
     # out, B, N, P, Pw, stream
     "extract_windows_levels_f32": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    # T0; (pointer, batch stride) of pts, obs, inv_sigma2, stereo, right,
+    # valid, K; baseline (pointer, stride), its value; B, M, max_iters;
+    # T_out, chi2, inliers, stereo_out, err, lam, iters; stream
+    "motion_only_lm_f32": (
+        _P, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L,
+        _P, _L, _F, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
 }
 
 

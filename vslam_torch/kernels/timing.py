@@ -162,6 +162,144 @@ def window_table(levels, counts, x0, y0, P: int) -> dict:
         }
 
 
+# KITTI 00's left camera and baseline (configs/config_kitti_00.yaml)
+KITTI00_CAM = (1241, 376, 718.856, 607.1928, 185.2157, 0.537)
+
+
+def lm_problem(B: int = 2, M: int = 4096, *, per_problem: bool = False, seed: int = 0, device="cuda",
+               invalid: float = 0.25, outliers: float = 0.1, behind: float = 0.0):
+    """A motion-only LM batch shaped like the tracker's, on KITTI 00's
+    camera, from a seed: M rows of points 4-40 m in front of a true pose
+    (a share `behind` of them 1-10 m behind it), their [u_left, v,
+    u_right] pixels with 0.5 px noise, half of the rows stereo, a tenth of
+    the others seen in the right image only, a share `outliers` 15-40 px
+    off in u and v, 3% of the other stereo rows 5-10 px off in u_right
+    alone (the sweep demotes them), octaves 0-3, a share `invalid` not
+    valid. The B problems share the rows, K and the baseline and start
+    from B perturbations of one true pose (the tracker's two starts), or,
+    `per_problem`, each has its own true pose, rows, K and baseline (a
+    batch of sequences). Returns (the positional arguments of
+    ``lm.motion_only_ba``, the (B, 4, 4) true poses)."""
+    import numpy as np
+
+    from vslam_torch.geometry import se3
+
+    W, H, f, cx, cy, bl = KITTI00_CAM
+    rng = np.random.default_rng(seed)
+    n = B if per_problem else 1
+
+    def expmap(xi):
+        return se3.se3_expmap(torch.from_numpy(np.asarray(xi, np.float64))).numpy()
+
+    cols = {k: [] for k in ("pts", "obs", "isig", "st", "rt", "valid", "K", "bl", "T")}
+    for _ in range(n):
+        fx = f * (1.0 + 0.01 * rng.standard_normal()) if per_problem else f
+        b = bl * (1.0 + 0.05 * rng.standard_normal()) if per_problem else bl
+        u, v = rng.uniform(0, W, M), rng.uniform(0, H, M)
+        z = np.where(rng.random(M) < behind, -rng.uniform(1, 10, M), rng.uniform(4, 40, M))
+        pc = np.stack([(u - cx) * z / fx, (v - cy) * z / fx, z], -1)
+        T = expmap(np.concatenate([rng.normal(0, 0.1, 3), rng.normal(0, 2.0, 3)]))
+        obs = np.stack([u, v, fx * (pc[:, 0] - b) / z + cx], -1) + rng.normal(0, 0.5, (M, 3))
+        st = rng.random(M) < 0.5
+        rt = ~st & (rng.random(M) < 0.1)
+        obs[rt, 0], obs[rt, 2] = obs[rt, 2], -1.0
+        out = rng.random(M) < outliers
+        obs[out, :2] += rng.uniform(15, 40, (out.sum(), 2)) * rng.choice([-1.0, 1.0], (out.sum(), 2))
+        bad_r = st & ~out & (rng.random(M) < 0.03)
+        obs[bad_r, 2] += rng.uniform(5, 10, bad_r.sum())
+        cols["pts"].append(pc @ T[:3, :3].T + T[:3, 3])
+        cols["obs"].append(obs)
+        cols["isig"].append(1.2 ** (-2.0 * rng.integers(0, 4, M)))
+        cols["st"].append(st)
+        cols["rt"].append(rt)
+        cols["valid"].append(rng.random(M) >= invalid)
+        cols["K"].append([[fx, 0.0, cx], [0.0, fx, cy], [0.0, 0.0, 1.0]])
+        cols["bl"].append(b)
+        cols["T"].append(T)
+    T_true = np.stack(cols["T"] * (B // n))
+    T_init = T_true @ np.stack([expmap(np.concatenate([rng.normal(0, 0.01, 3), rng.normal(0, 0.15, 3)]))
+                                for _ in range(B)])
+    dev = torch.device(device)
+
+    def put(k, dtype):
+        x = np.stack(cols[k]) if per_problem else np.asarray(cols[k][0])
+        return torch.from_numpy(x.astype(dtype)).to(dev)
+
+    f32 = np.float32
+    args = (torch.from_numpy(T_init.astype(f32)).to(dev), put("pts", f32), put("obs", f32), put("isig", f32),
+            put("st", bool), put("rt", bool), put("valid", bool), put("K", f32), put("bl", f32))
+    return args, torch.from_numpy(T_true.astype(f32)).to(dev)
+
+
+def lm_near_gate(args, T, chi2, margin: float) -> torch.Tensor:
+    """The (B, M) rows of a motion-only LM call (``args`` as
+    :func:`lm_problem` makes them) whose chi^2 lies within `margin` of the
+    7.815 gate: the 3- or the 2-dof chi^2 at the poses T, or the call's
+    own `chi2`. Solves whose poses differ a little may classify such rows
+    differently."""
+    from vslam_torch.ops import lm
+
+    pts, obs, isig, st, rt, valid, K, bl = args[1:]
+    c3 = lm.reproj_chi2(T, pts, obs, isig, st, rt, valid, K, bl)
+    c2 = lm.reproj_chi2(T, pts, obs, isig, torch.zeros_like(st), rt, valid, K, bl)
+    return sum((x - lm.CHI2_3DOF).abs() < margin for x in (c3, c2, chi2)) > 0
+
+
+# f32 operations a row costs the LM kernel (motion_only_lm.cu, FMA = 2): a
+# row of an LM pass (accumulate_row: the transform 18, the residuals 14, the
+# weights 4, the Jacobian 32, the cost 6, the scaling 18, J^T J 126, J^T r
+# 36), the robust pass's Huber weight, and a row of a chi-squared sweep
+# (chi2_row)
+LM_ROW_FLOPS, LM_HUBER_FLOPS, LM_SWEEP_FLOPS = 254, 15, 45
+SM_F32_FLOPS_PER_CYCLE = 256  # an H100 SM: 128 f32 lanes, an FMA each a cycle
+
+
+def lm_flops(args, inliers, its) -> torch.Tensor:
+    """Per problem, the f32 operations of one kernel call: pass 1 evaluates
+    its valid rows (robust) at its start and at each trial, pass 2 its
+    gated set (taken as the call's final `inliers`) likewise, and the two
+    sweeps every row. `its`: the per-pass (B,) iterations the call put in
+    its `stats`. Returns a (B,) float64 tensor."""
+    valid = args[6].expand(inliers.shape)
+    M = inliers.shape[-1]
+    it1, it2 = (x.to(torch.float64) + 1 for x in its)
+    return (it1 * valid.sum(-1) * (LM_ROW_FLOPS + LM_HUBER_FLOPS) + it2 * inliers.sum(-1) * LM_ROW_FLOPS
+            + 2 * M * LM_SWEEP_FLOPS)
+
+
+def lm_table(args, max_iters: int = 100) -> dict:
+    """One ``lm.motion_only_ba`` call on the card (``args`` as
+    :func:`lm_problem` makes them): the kernel's launches per call, device
+    ms on a primed stream, host ms per call, the iterations of each pass
+    (the batch's longest problem), device us per LM iteration, the plain
+    version's wall ms per call (it reads its done flags on the host, so it
+    cannot be primed), and ``bound_ms``: the longest problem's
+    :func:`lm_flops` at one SM's f32 peak at the card's measured clock
+    (the kernel gives each problem one block, and the problems run side
+    by side). The time above the bound is the iterations' serial chain:
+    the reductions, the barriers and thread 0's solve."""
+    from vslam_torch.ops import lm
+
+    def kernel():
+        return lm.motion_only_ba(*args, max_iters=max_iters)
+
+    with torch.cuda.device(args[0].device):
+        its, n0 = [], lm.LAUNCHES
+        out = lm.motion_only_ba(*args, max_iters=max_iters, stats=its)
+        launches = lm.LAUNCHES - n0
+        flops = lm_flops(args, out[2], its)
+        bound_ms = float(flops.max()) / (SM_F32_FLOPS_PER_CYCLE * _cycles_per_ms())
+        its = [int(x.max()) for x in its]
+        device_ms = primed_device_ms(kernel)
+        return {
+            "launches_per_call": launches, "iterations": its, "device_ms": device_ms,
+            "us_per_iteration": 1e3 * device_ms / max(sum(its), 1),
+            "host_ms_per_call": host_ms_per_call(kernel),
+            "plain_ms": wall_ms(lambda: lm.motion_only_ba_ref(*args, max_iters=max_iters), reps=5),
+            "bound_ms": bound_ms, "flops": float(flops.max()), "cycles_per_ms": _cycles_per_ms(),
+        }
+
+
 def _bench_frame_inputs(pyramid, seed: int = 3):
     """The window stage's inputs for one stereo frame at the bench
     configuration: the 8 blurred levels of a seeded image pair, the level

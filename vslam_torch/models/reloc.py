@@ -52,8 +52,10 @@ def _verify_candidate(m, kf_slot: int, keys_xy, keys_desc, keys_valid, K, baseli
     matched to the keyframe's landmark-bearing keys by descriptor, with a
     ratio test whose second-best lies outside 3 px of the best (multi-octave
     duplicates of one corner would veto true matches), then one
-    single-start motion-only LM from the keyframe's pose. Returns (T_opt
-    (4, 4), n_inliers, n_matches) as tensors."""
+    single-start motion-only LM from the keyframe's pose. `K` (3, 3) may be
+    host data: the solve takes it as float32 on the keys' device. Returns
+    (T_opt (4, 4), n_inliers, n_matches) as tensors."""
+    K = torch.as_tensor(K, dtype=torch.float32, device=keys_xy.device)
     kd = hamming.unpack_signed(m.obs_desc[kf_slot])
     kv = m.obs_valid[kf_slot] & (m.obs_lm[kf_slot] >= 0)
     d = hamming.hamming_matrix(keys_desc, kd, keys_valid, kv)

@@ -242,8 +242,13 @@ def track_step_batch(
     `timer` (a StageTimer) times the stages ``track.extract``,
     ``track.stereo``, ``track.pose_solve`` and, in each radius attempt,
     ``track.match`` and ``track.lm``; `counters` (a Counters) counts the
-    ``radius_attempts`` (the refine pass included), the ``lm_iters`` the
-    LM's host loops dispatched and the ``host_reads`` of the step."""
+    ``radius_attempts`` (the refine pass included), the ``lm_iters`` (the
+    iterations the LM's host loops dispatched, or, on the card, the longest
+    problem's of each kernel pass), the ``lm_kernel_solves`` (solves that
+    took the motion-only LM kernel) and the ``host_reads`` of the step. The
+    kernel's iterations are counted with the retry loop's read of its done
+    flags and, for the refine pass, with the frame's blob
+    (``outputs["lm_iters"]``, read by :func:`_host_blob`)."""
     n_levels, min_inliers = p.n_levels, p.min_inliers
     stage = lambda name: metrics_mod.maybe_stage(timer, name)  # noqa: E731
 
@@ -346,6 +351,7 @@ def track_step_batch(
                 w = extract.inv_sigma2(oct_obs, n_levels, p.scale)
             count("radius_attempts")
             its, reads = [], []
+            launches = lm.LAUNCHES
             with stage("track.lm"):
                 if has_imu:
                     T_opt, v_opt, b_opt, _, inl, st_out, _ = lm.motion_only_ba_imu(
@@ -370,7 +376,8 @@ def track_step_batch(
                     inl = torch.where(use_b[:, None], inls[S:], inls[:S])
                     st_out = torch.where(use_b[:, None], sts[S:], sts[:S])
                     v_opt, b_opt = v_base, b0
-            count("lm_iters", sum(its))
+            if lm.LAUNCHES > launches:
+                count("lm_kernel_solves", lm.LAUNCHES - launches)
             count("host_reads", sum(reads))
             inliers = matched & inl
             return {
@@ -388,6 +395,7 @@ def track_step_batch(
                 "st_out": st_out,
                 "r_uv": r_uv,
                 "r_oct": r_oct,
+                "lm_iters": _lm_iterations(its, count),
             }
 
         # adaptive-radius retry loop: every attempt starts from the prediction;
@@ -406,8 +414,7 @@ def track_step_batch(
                 done = done | found
             else:
                 T_opt, v_opt, done = res["T"], res["v"], found
-            done_h = done.cpu().numpy()
-            count("host_reads")
+            done_h = _read_done(done, res["lm_iters"], count)
 
         # refine pass at the small radius from the optimized pose
         res = attempt(T_opt, v_opt, refine_radius, do_right=True)
@@ -486,7 +493,31 @@ def track_step_batch(
         "r_oct": res["r_oct"],
         "blob": blob,
     }
+    if res["lm_iters"] is not None:
+        outputs["lm_iters"] = res["lm_iters"].expand(S)
     return new_state, outputs
+
+
+def _lm_iterations(its: list, count) -> torch.Tensor | None:
+    """An attempt's LM iterations, from the solver's `stats`: the host
+    loop's counts (ints) are counted now; the kernel's (B,) per-problem
+    counts (device tensors) become the longest problem's of each pass,
+    summed on the device, for a read the caller makes anyway. Returns that
+    0-d tensor, or None when there is none."""
+    count("lm_iters", sum(x for x in its if not isinstance(x, torch.Tensor)))
+    dev = [x for x in its if isinstance(x, torch.Tensor)]
+    return torch.stack(dev).amax(dim=1).sum() if dev else None
+
+
+def _read_done(done: torch.Tensor, lm_iters: torch.Tensor | None, count) -> np.ndarray:
+    """The retry loop's one host read of the S done flags, which carries the
+    attempt's kernel LM iterations (`lm_iters`) when there are any."""
+    count("host_reads")
+    if lm_iters is None:
+        return done.cpu().numpy()
+    host = torch.cat([done.to(lm_iters.dtype), lm_iters[None]]).cpu().numpy()
+    count("lm_iters", int(host[-1]))
+    return host[:-1].astype(bool)
 
 
 def _prepare_keyframe(
@@ -646,17 +677,29 @@ def _host_blob(outputs: dict, counters=None) -> np.ndarray:
     """A tracked frame's packed blob on the host. The frames of a batched
     step share one device-to-host copy of the (S, 34 + A) blob (made by the
     first sequence to process the frame): ``shared_blob`` is the list
-    [device blob, host copy or None] and ``seq`` the sequence's row. The
-    copy counts as one ``host_reads`` of `counters`."""
+    [device blob, host copy or None, lm_iters or None, counters of the
+    step] and ``seq`` the sequence's row. The copy counts as one
+    ``host_reads`` of `counters`. Where the refine pass took the LM kernel,
+    the copy also carries its iterations (``lm_iters``), which it counts
+    as ``lm_iters`` of the step's counters."""
     shared = outputs.get("shared_blob")
     if shared is not None and shared[1] is not None:
         return shared[1][outputs["seq"]]
     if counters is not None:
         counters.inc("host_reads")
     if shared is None:
-        return outputs["blob"].cpu().numpy()
-    shared[1] = shared[0].cpu().numpy()
+        return _read_blob(outputs["blob"], outputs.get("lm_iters"), counters)
+    shared[1] = _read_blob(shared[0], shared[2], shared[3])
     return shared[1][outputs["seq"]]
+
+
+def _read_blob(blob: torch.Tensor, lm_iters: torch.Tensor | None, counters) -> np.ndarray:
+    if lm_iters is None:
+        return blob.cpu().numpy()
+    host = torch.cat([blob, lm_iters[..., None].to(blob.dtype)], dim=-1).cpu().numpy()
+    if counters is not None:
+        counters.inc("lm_iters", int(host.reshape(-1, host.shape[-1])[0, -1]))
+    return host[..., :-1]
 
 
 def _imu_predict(samples, T_prev_wc, v_prev, bias_prev, gravity_w, T_bc, imu_params):

@@ -14,6 +14,11 @@ The Jacobians are analytic, at the zero tangent of the retraction — what
 ``jax.jacfwd`` computes at lm.py:73, without the forward-mode pass: the
 projection rows in the pose tangent of T * exp(xi), and the 30 inertial,
 bias and prior rows of the visual-inertial solve in its 15-vector tangent.
+
+On a CUDA tensor :func:`motion_only_ba` is one launch of the hand-written
+kernel ``kernels/csrc/motion_only_lm.cu`` (both LM passes, the sweeps and
+the done tests on the device); on a CPU tensor it is its plain version,
+:func:`motion_only_ba_ref`. ``LAUNCHES`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -22,10 +27,15 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from vslam_torch import kernels
 from vslam_torch.geometry import se3
 from vslam_torch.ops.project_match import per_problem
 
 CHI2_3DOF = 7.815  # reference include/FeatureTracker.h:56
+LAUNCHES = 0
+# The kernel stages a problem's rows in one block's shared memory, 29 B a
+# row: an H100 gives a block 227 KiB, about 7,900 rows.
+MAX_ROWS = 7680
 
 # Iterations between host reads of the done flags. It only spaces out the
 # host syncs: a lane that is done is frozen, so it never changes the
@@ -213,7 +223,7 @@ def reproj_chi2(
     return e2 * inv_sigma2
 
 
-def motion_only_ba(
+def motion_only_ba_ref(
     T_init: torch.Tensor,  # (B, 4, 4) one problem per initial pose
     pts_w: torch.Tensor,
     obs: torch.Tensor,
@@ -239,7 +249,10 @@ def motion_only_ba(
 
     Returns (T_opt (B,4,4), chi2 (B,M), inliers (B,M), is_stereo_out (B,M),
     LMResult of the second pass). `stats` and `reads` as for
-    :func:`lm_solve`, one entry per pass."""
+    :func:`lm_solve`, one entry per pass.
+
+    This is the plain version: :func:`motion_only_ba` runs it on the CPU,
+    and the card's kernel is held against it."""
     B = T_init.shape[0]
     weights = torch.sqrt(inv_sigma2)
     chi2_gate = torch.tensor(CHI2_3DOF, dtype=torch.float32)
@@ -287,6 +300,147 @@ def motion_only_ba(
     inliers, st_out = classify(T_opt, st1)
     chi2 = reproj_chi2(T_opt, pts_w, obs, inv_sigma2, st_out, is_right, valid, K, baseline)
     return T_opt, chi2, inliers, st_out, result
+
+
+class KernelLayout(NamedTuple):
+    """How the motion-only LM kernel reads a call's operands."""
+
+    B: int
+    M: int
+    rows: tuple  # (tensor, batch stride in elements) of pts, obs, inv_sigma2, stereo, right, valid
+    K: tuple  # (tensor, batch stride)
+    baseline: tuple  # (tensor or None, batch stride, value of a host baseline)
+
+
+def _batch_stride(name: str, x, B: int, M: int, tail: tuple, dtype, device) -> int:
+    """The batch stride of a per-row operand, shared by the batch (M, *tail)
+    or one per problem (B, M, *tail) (any batch stride, 0 included, but
+    contiguous within a problem); raises on what the kernel does not take."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"motion_only_ba: {name} must be a tensor; got {type(x).__name__}")
+    if x.dtype != dtype:
+        raise TypeError(f"motion_only_ba: {name} must be {dtype}; got {x.dtype}")
+    if x.device != device:
+        raise ValueError(f"motion_only_ba: {name} on {x.device}, the poses on {device}")
+    shape = (M, *tail)
+    if tuple(x.shape) == shape:
+        if not x.is_contiguous():
+            raise ValueError(f"motion_only_ba: {name} {shape} must be contiguous")
+        return 0
+    if tuple(x.shape) == (B, *shape):
+        if B and not x[0].is_contiguous():
+            raise ValueError(f"motion_only_ba: each problem's {name} {shape} must be contiguous")
+        return x.stride(0) if B > 1 else 0
+    raise ValueError(f"motion_only_ba: {name} must be {shape} or {(B, *shape)}; got {tuple(x.shape)}")
+
+
+def kernel_layout(
+    T_init, pts_w, obs, inv_sigma2, is_stereo, is_right, valid, K, baseline
+) -> KernelLayout:
+    """Check a call's operands against what the kernel takes (float32 poses,
+    points, observations and weights, bool flags, each per-row operand
+    shared by the batch or carrying the leading B, contiguous within a
+    problem, at most MAX_ROWS rows; K a float32 (3, 3) or (B, 3, 3) on the
+    poses' device; a number, 0-d tensor or (B,) baseline) and return how it
+    reads them. Raises TypeError or ValueError; launches nothing."""
+    if not isinstance(T_init, torch.Tensor) or T_init.dtype != torch.float32:
+        raise TypeError("motion_only_ba: T_init must be a float32 tensor")
+    if T_init.ndim != 3 or tuple(T_init.shape[1:]) != (4, 4) or not T_init.is_contiguous():
+        raise ValueError(f"motion_only_ba: T_init must be a contiguous (B, 4, 4); got {tuple(T_init.shape)}")
+    B, dev = T_init.shape[0], T_init.device
+    if not isinstance(pts_w, torch.Tensor) or pts_w.ndim not in (2, 3):
+        raise ValueError("motion_only_ba: pts_w must be a (M, 3) or (B, M, 3) tensor")
+    M = pts_w.shape[-2]
+    if M > MAX_ROWS:
+        raise ValueError(f"motion_only_ba: {M} rows; the kernel stages at most {MAX_ROWS} in shared memory")
+    f32, b8 = torch.float32, torch.bool
+    rows = tuple(
+        (x, _batch_stride(name, x, B, M, tail, dtype, dev))
+        for name, x, tail, dtype in (
+            ("pts_w", pts_w, (3,), f32), ("obs", obs, (3,), f32), ("inv_sigma2", inv_sigma2, (), f32),
+            ("is_stereo", is_stereo, (), b8), ("is_right", is_right, (), b8), ("valid", valid, (), b8),
+        )
+    )
+    K_lay = (K, _batch_stride("K", K, B, 3, (3,), f32, dev))
+    if isinstance(baseline, torch.Tensor) and baseline.ndim:
+        if baseline.dtype != f32 or baseline.device != dev or tuple(baseline.shape) != (B,):
+            raise ValueError(
+                f"motion_only_ba: a per-problem baseline must be a float32 ({B},) on {dev}; got "
+                f"{baseline.dtype} {tuple(baseline.shape)} on {baseline.device}"
+            )
+        bl_lay = (baseline, baseline.stride(0) if B > 1 else 0, 0.0)
+    elif isinstance(baseline, torch.Tensor) and baseline.device == dev:
+        if baseline.dtype != f32:
+            raise TypeError(f"motion_only_ba: baseline must be float32; got {baseline.dtype}")
+        bl_lay = (baseline, 0, 0.0)
+    else:
+        bl_lay = (None, 0, float(baseline))
+    return KernelLayout(B, M, rows, K_lay, bl_lay)
+
+
+def motion_only_ba(
+    T_init: torch.Tensor,
+    pts_w: torch.Tensor,
+    obs: torch.Tensor,
+    inv_sigma2: torch.Tensor,
+    is_stereo: torch.Tensor,
+    is_right: torch.Tensor,
+    valid: torch.Tensor,
+    K: torch.Tensor,
+    baseline,
+    max_iters: int = 100,
+    stats: list | None = None,
+    reads: list | None = None,
+):
+    """:func:`motion_only_ba_ref`'s pose solve. On a CUDA tensor it is one
+    launch of ``kernels/csrc/motion_only_lm.cu`` (the operands as
+    :func:`kernel_layout` takes them, else it raises): both LM passes, the
+    chi-squared sweeps and every done test run on the device, with no host
+    read. `stats` then receives, per pass, the (B,) iterations each problem
+    ran, as a device tensor; `reads`, 0 per pass. On a CPU tensor it is
+    :func:`motion_only_ba_ref`."""
+    global LAUNCHES
+    dev = T_init.device
+    if dev.type == "cpu":
+        return motion_only_ba_ref(
+            T_init, pts_w, obs, inv_sigma2, is_stereo, is_right, valid, K, baseline,
+            max_iters=max_iters, stats=stats, reads=reads,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"motion_only_ba: unsupported device {dev}")
+    lay = kernel_layout(T_init, pts_w, obs, inv_sigma2, is_stereo, is_right, valid, K, baseline)
+    B, M = lay.B, lay.M
+    f32 = torch.float32
+    T_out = torch.empty((B, 4, 4), dtype=f32, device=dev)
+    chi2 = torch.empty((B, M), dtype=f32, device=dev)
+    inliers = torch.empty((B, M), dtype=torch.bool, device=dev)
+    st_out = torch.empty((B, M), dtype=torch.bool, device=dev)
+    err = torch.empty((B,), dtype=f32, device=dev)
+    lam = torch.empty((B,), dtype=f32, device=dev)
+    iters = torch.empty((B, 2), dtype=torch.int64, device=dev)
+    if B:
+        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+        (K_t, K_s), (bl_t, bl_s, bl_v) = lay.K, lay.baseline
+        args = (
+            T_init.data_ptr(), *(a for x, stride in lay.rows for a in (x.data_ptr(), stride)),
+            K_t.data_ptr(), K_s, ptr(bl_t), bl_s, bl_v, B, M, int(max_iters),
+            T_out.data_ptr(), chi2.data_ptr(), inliers.data_ptr(), st_out.data_ptr(),
+            err.data_ptr(), lam.data_ptr(), iters.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        lib = kernels.library()
+        if dev.index == torch.cuda.current_device():
+            rc = lib.motion_only_lm_f32(*args)
+        else:
+            with torch.cuda.device(dev):
+                rc = lib.motion_only_lm_f32(*args)
+        kernels.check(rc, "motion_only_lm_f32")
+        LAUNCHES += 1
+    if stats is not None:
+        stats.extend([iters[:, 0], iters[:, 1]])
+    if reads is not None:
+        reads.extend([0, 0])
+    return T_out, chi2, inliers, st_out, LMResult(state=T_out, error=err, iterations=iters[:, 1], lam=lam)
 
 
 # ---------------------------------------------------------------------------

@@ -164,7 +164,9 @@ class BatchedStereoFrontend:
                 t0._desc_thr, t0._ratio, self._K_b, self._bl_b, t0.scale_factors, p,
                 t0.width, t0.height, imu=imu_arg, timer=self.metrics, counters=self.counters,
             )
-            shared = [outputs["blob"], None]  # one host copy for all S
+            # one host copy for all S (it counts the refine pass's kernel LM
+            # iterations into the step's counters)
+            shared = [outputs["blob"], None, outputs.get("lm_iters"), self.counters]
             for s, t in enumerate(ts):
                 t._state = tracker_mod.index_tree(new_state, s)
                 out_s = tracker_mod.index_tree(outputs, s)

@@ -14,7 +14,9 @@ count none. The per-element coefficients below follow each op in turn;
 tests/test_torch_tools.py holds every function against an op-by-op count
 of the same call on the CPU. Work that depends on the data is counted as
 these inputs need it: the LM at the iterations each problem ran
-(``LMResult.iterations``), the tracker at the attempts it made. A term
+(``LMResult.iterations`` of each pass; on the card the kernel's per-pass
+counts, which ``motion_only_ba`` hands to its `stats`), the tracker at
+the attempts it made. A term
 left out is named where it is left out; the bound then errs low.
 
 Peaks (NVIDIA H100 SXM data sheet): float32 outside the tensor cores, as

@@ -152,9 +152,11 @@ def track_step_count(trk: tracker.StereoTracker, LR: torch.Tensor, step, needed:
     culling, the projection matching (left, and right in the refine pass)
     and the two-start LM at its iterations, read by watching
     ``lm.motion_only_ba``, ``lm.lm_solve`` and
-    ``project_match.match_by_projection`` during one more call. `needed`:
-    each LM problem at the iterations it ran; else at the loop passes the
-    code computes (a finished problem is computed until all are done). The
+    ``project_match.match_by_projection`` during one more call (on the card
+    the LM is the kernel: no ``lm_solve`` passes, the iterations from its
+    `stats`). `needed`: each LM problem at the iterations it ran; else at
+    the loop passes the code computes (on the CPU a finished problem is
+    computed until all are done; the kernel computes what each needs). The
     failure gate, miss aging and the per-attempt gathers are left out."""
     p = trk.params
     B, H, W = LR.shape
@@ -165,9 +167,15 @@ def track_step_count(trk: tracker.StereoTracker, LR: torch.Tensor, step, needed:
     flop += counts.stereo_flops(1, p.n_features, p.n_features)
     for i, (args, kw, _) in enumerate(solves):
         S, M = args[1].shape[0] // 2, args[1].shape[-2]
-        its = [r.iterations for _, _, r in passes[2 * i:2 * i + 2]]
-        if not needed:
-            its = [counts.computed_iterations(t, kw["max_iters"], lm._DONE_CHECK_EVERY) for t in its]
+        if not passes:
+            # on the card motion_only_ba is one kernel launch and makes no
+            # lm_solve passes: its `stats` hold each pass's per-problem
+            # iterations, and each problem computes only those
+            its = list(kw["stats"])
+        else:
+            its = [r.iterations for _, _, r in passes[2 * i:2 * i + 2]]
+            if not needed:
+                its = [counts.computed_iterations(t, kw["max_iters"], lm._DONE_CHECK_EVERY) for t in its]
         flop += counts.lm_flops(M, its) + counts.cull_flops(S, M)
     for args, _, _ in matches:
         flop += counts.match_flops(1 if args[0].ndim == 2 else args[0].shape[0], args[0].shape[-2],
